@@ -47,13 +47,13 @@ readout of a tanh stack fitted layerwise to the same one-hot target, and
 test accuracy lands at chance; the 0.5127/0.2671 artifacts
 (analyze_model_utils.py:233-241) therefore predate the degenerate reward.
 
-Run: PYTHONPATH=. python benchmarks/faithfulness_ablation.py          (TPU)
-     PYTHONPATH=. QKAN_PLATFORM=cpu python benchmarks/faithfulness_ablation.py --quick
+Run: PYTHONPATH=. python benchmarks/faithfulness_ablation.py          (GPU)
+     PYTHONPATH=. JAX_PLATFORMS=cpu python benchmarks/faithfulness_ablation.py --quick
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()
+enable_compile_cache()
 
 import argparse
 import json
@@ -63,9 +63,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qkan_implementation_tpu.anneal import degree_selection_qubo
-from qkan_implementation_tpu.experiments.mnist import run_mnist_experiment
-from qkan_implementation_tpu.models.fixed_kan import FixedKAN, FixedKANConfig
+from qkan_implementation.anneal import degree_selection_qubo
+from qkan_implementation.experiments.mnist import run_mnist_experiment
+from qkan_implementation.models.fixed_kan import FixedKAN, FixedKANConfig
 
 
 def reference_qubo_numpy(scores, num_functions, complexity_weight):
@@ -100,7 +100,7 @@ def reference_qubo_numpy(scores, num_functions, complexity_weight):
 
 
 def part_a_degeneracy(train_size: int, shape, max_degree: int, cw: float):
-    from qkan_implementation_tpu.data.mnist import load_digits_784
+    from qkan_implementation.data.mnist import load_digits_784
 
     x_train, y_train, _ = load_digits_784(
         train=True, augment_to=train_size, seed=0

@@ -13,9 +13,9 @@ wall-clock per phase.
 
 from __future__ import annotations
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()
+enable_compile_cache()
 
 import argparse
 import json
@@ -51,14 +51,14 @@ def main():
     import jax
     import numpy as np
 
-    from qkan_implementation_tpu.data.pipeline import (
+    from qkan_implementation.data.pipeline import (
         PROFILE_SIGNAL_FRAC,
         DataPipeline,
         generate_market_parquet,
     )
-    from qkan_implementation_tpu.experiments.config import DataConfig
-    from qkan_implementation_tpu.optim.degree_optimizer import DegreeOptimizer
-    from qkan_implementation_tpu.utils.profiling import StageTimer
+    from qkan_implementation.experiments.config import DataConfig
+    from qkan_implementation.optim.degree_optimizer import DegreeOptimizer
+    from qkan_implementation.utils.profiling import StageTimer
 
     print(f"device={jax.devices()[0]}", file=sys.stderr)
     timer = StageTimer(annotate_trace=False)

@@ -28,7 +28,7 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from qkan_implementation_tpu.models.fixed_kan import FixedKAN, FixedKANConfig
+    from qkan_implementation.models.fixed_kan import FixedKAN, FixedKANConfig
 
     print(f"device={jax.devices()[0]}", file=sys.stderr)
     rng = np.random.default_rng(0)

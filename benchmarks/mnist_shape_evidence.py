@@ -5,9 +5,9 @@ max_degree 5, 10k train samples on real MNIST, with saved accuracy
 artifacts (fixed_kan_tests.py:293-410; accuracies 0.5127/0.2671 at
 analyze_model_utils.py:233-241).  Real MNIST is unavailable in this
 environment (no network egress), so this runs the SAME workload shape on
-``digits-784``: real handwritten-digit scans (sklearn digits) bilinearly
+``digits-784``: real handwritten-digit scans (the 8x8 digits set) bilinearly
 upsampled to 28x28 and shift/noise-augmented to 10k samples -- labeled as
-such everywhere, never presented as MNIST (VERDICT r1 provenance item).
+such everywhere, never presented as MNIST.
 
 Three configurations per run:
   reference-faithful  -- the reference's exact semantics (degenerate
@@ -18,13 +18,13 @@ Three configurations per run:
 Artifacts -> benchmarks/records/mnist_shape_{config}.json (+ 64-dim digits
 baseline rows for the quality table).
 
-Run: PYTHONPATH=. python benchmarks/mnist_shape_evidence.py           (TPU)
-     PYTHONPATH=. QKAN_PLATFORM=cpu python benchmarks/mnist_shape_evidence.py --quick
+Run: PYTHONPATH=. python benchmarks/mnist_shape_evidence.py           (GPU)
+     PYTHONPATH=. JAX_PLATFORMS=cpu python benchmarks/mnist_shape_evidence.py --quick
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()
+enable_compile_cache()
 
 import argparse
 import json
@@ -32,7 +32,7 @@ import pathlib
 
 import jax
 
-from qkan_implementation_tpu.experiments.mnist import run_mnist_experiment
+from qkan_implementation.experiments.mnist import run_mnist_experiment
 
 
 def main():
@@ -43,7 +43,7 @@ def main():
         "--only",
         default=None,
         help="run a single flagship config by name (skips the digits-64 "
-        "and shallow rows) -- e.g. improved_trained_fused_bf16",
+        "and shallow rows) -- e.g. improved_trained_bf16",
     )
     ap.add_argument(
         "--nruns",
@@ -86,64 +86,12 @@ def main():
             weight_trainable="all", weight_lr_scale="fanin",
             weight_grad_clip=1.0, learning_rate=0.002,
         ),
-        # accuracy-parity evidence for the Pallas fused + bf16-stored-x
-        # training recipe (the 11x train-step kernel): same run as
-        # improved_trained, gradients through ops/fused_layer.py in bf16
-        "improved_trained_fused_bf16": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_backend="fused", weight_compute_dtype="bfloat16",
-        ),
-        # the other two cells of the {backend} x {dtype} square, for
-        # attributing any fused_bf16 quality gap to the Mosaic lowering
-        # (fused+f32 fails too) vs bf16 training dynamics (xla+bf16
-        # fails too) -- chip-gated diagnosis, docs/benchmarks.md
-        "improved_trained_fused": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_backend="fused",
-        ),
-        # r5 degree-wise kernel cells: end-to-end trained accuracy for
-        # backend='fused_dw' in both precision classes (the kernel wins
-        # the whole-model train step in both, flagship_train_step.json --
-        # these rows prove its custom VJP also trains to the band)
-        "improved_trained_fused_dw": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_backend="fused_dw",
-        ),
-        "improved_trained_fused_dw_bf16": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_backend="fused_dw", weight_compute_dtype="bfloat16",
-        ),
         "improved_trained_bf16": dict(
             degree_objective="penalized_mse", consistent_tanh=True,
             complexity_weight=0.001, weight_epochs=epochs,
             weight_trainable="all", weight_lr_scale="fanin",
             weight_grad_clip=1.0, learning_rate=0.002,
             weight_compute_dtype="bfloat16",
-        ),
-        # TPU-gap diagnosis cell (r4): same recipe as improved_trained but
-        # every training matmul runs precision 'high' (bf16x3 passes, ~f32
-        # products).  On-chip xla/f32 measured 0.803 vs the CPU true-f32 band
-        # 0.878+-0.013 with identical config/seed -- if this cell recovers
-        # the band, the gap is the TPU f32 default's single bf16 pass in
-        # the gradient path (the training analog of the r3 Gram finding)
-        "improved_trained_prec3x": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_matmul_precision="high",
         ),
         # the measured capability ceiling: doubling epochs WITH the cosine
         # schedule (constant-lr 30ep overfits: 0.881) -- 0.900 single-seed
@@ -165,22 +113,11 @@ def main():
             weight_grad_clip=1.0, learning_rate=0.002,
             weight_lr_schedule="cosine", max_degree=7,
         ),
-        # the ceiling recipe with precision-pinned training matmuls: the
-        # TPU quality headline once the prec3x diagnosis confirms (CPU band
-        # for the unpinned recipe: 0.887 +- 0.010, max 0.903)
-        "improved_trained_cosine30_deg7_prec": dict(
-            degree_objective="penalized_mse", consistent_tanh=True,
-            complexity_weight=0.001, weight_epochs=2 * epochs,
-            weight_trainable="all", weight_lr_scale="fanin",
-            weight_grad_clip=1.0, learning_rate=0.002,
-            weight_lr_schedule="cosine", max_degree=7,
-            weight_matmul_precision="high",
-        ),
     }
 
     out = pathlib.Path(__file__).resolve().parent / "records"
     out.mkdir(parents=True, exist_ok=True)
-    # quick smoke runs must never clobber the committed TPU records
+    # quick smoke runs must never clobber the committed records
     pre = "QUICK_" if args.quick else ""
     if args.only is not None:
         if args.only not in configs:
@@ -189,7 +126,7 @@ def main():
             )
         configs = {args.only: configs[args.only]}
     note = (
-        "dataset is digits-784 (upsampled+augmented sklearn digits), "
+        "dataset is digits-784 (upsampled+augmented 8x8 digits), "
         "NOT MNIST; reference MNIST baselines 0.5127/0.2671 are not "
         "directly comparable"
     )
@@ -205,7 +142,7 @@ def main():
         )
         common.update(overrides)  # configs may override max_degree etc.
         if args.nruns > 1:
-            from qkan_implementation_tpu.experiments.mnist import (
+            from qkan_implementation.experiments.mnist import (
                 run_mnist_n_times,
             )
 
@@ -218,7 +155,7 @@ def main():
                 r["device"] = str(jax.devices()[0])
                 r["config_name"] = name
             res["note"] = note
-            plat = "cpu" if jax.devices()[0].platform == "cpu" else "tpu"
+            plat = jax.devices()[0].platform
             (
                 out / f"{pre}mnist_shape_{name}_{plat}_nruns.json"
             ).write_text(json.dumps(res, indent=1))

@@ -1,7 +1,7 @@
 """Full multi-chip training run: FixedKAN over a device mesh.
 
-The BASELINE "full training run across a v5e-8 slice" configuration,
-runnable on any mesh -- a real TPU slice, or the virtual 8-device CPU mesh:
+A full training run across a device mesh, runnable on any mesh -- several
+GPUs of one host, or the virtual 8-device CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       PYTHONPATH=. python benchmarks/multichip_train.py
@@ -32,17 +32,17 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from qkan_implementation_tpu.data.mnist import (
+    from qkan_implementation.data.mnist import (
         load_mnist,
         sample_train_subset,
         to_one_hot,
     )
-    from qkan_implementation_tpu.models.fixed_kan import (
+    from qkan_implementation.models.fixed_kan import (
         FixedKAN,
         FixedKANConfig,
         kan_apply,
     )
-    from qkan_implementation_tpu.parallel import make_mesh
+    from qkan_implementation.parallel import make_mesh
 
     n_dev = len(jax.devices())
     # mesh sizes must be powers of two for the sharded annealer

@@ -1,19 +1,18 @@
 """Sharded-statevector benchmark: exchange counts + wall-clock on a mesh.
 
-Real multi-chip slices are unavailable in this environment, so this runs on
-the virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8) to
-quantify the *schedule*: how many qubit-remap collectives the lazy layout
-issues for real workloads vs the naive exchange-in/out-per-gate bound, and
-the wall-clock effect of chunked exchanges.  On a real slice the same
-schedule rides ICI.
+On the virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8)
+this quantifies the *schedule*: how many qubit-remap collectives the lazy
+layout issues for real workloads vs the naive exchange-in/out-per-gate
+bound, and the wall-clock effect of chunked exchanges.  On several GPUs the
+same schedule runs as NCCL collectives over NVLink.
 
-Run: PYTHONPATH=. QKAN_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Run: PYTHONPATH=. JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
          python benchmarks/sharded_bench.py --qubits 22
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()
+enable_compile_cache()
 
 import jax as _jax
 
@@ -30,13 +29,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.parallel import make_mesh
-from qkan_implementation_tpu.sim import Circuit
-from qkan_implementation_tpu.sim.sharded import count_exchanges, sharded_simulate
+from qkan_implementation.parallel import make_mesh
+from qkan_implementation.sim import Circuit
+from qkan_implementation.sim.sharded import count_exchanges, sharded_simulate
 
 
 def fable_circuit(n: int):
-    from qkan_implementation_tpu.encoding import fable
+    from qkan_implementation.encoding import fable
 
     rng = np.random.default_rng(0)
     circ, _ = fable(np.diag(rng.uniform(-1, 1, 2**n)))
@@ -72,11 +71,8 @@ def main():
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument(
         "--exchange-impl", default="collective",
-        choices=["collective", "rdma", "all_to_all"],
-        help="'rdma' times the fused exchange+ucry kernel (sim/rdma.py); "
-        "meaningful on a real TPU slice -- on the CPU mesh the kernel runs "
-        "under interpret mode, so wall-clock there only checks the path; "
-        "'all_to_all' uses the grouped all_to_all exchange lowering",
+        choices=["collective", "all_to_all"],
+        help="'all_to_all' uses the grouped all_to_all exchange lowering",
     )
     ap.add_argument(
         "--exact-qubits", type=int, default=20,
@@ -88,9 +84,8 @@ def main():
         "--marginals-qubits", type=int, nargs="*", default=[27],
         help="large sharded runs checked via analytic marginals (f32; "
         "empty disables) -- 27 pairs with the single-chip dense record; "
-        "30 is the past-one-HBM demo (VERDICT r3 item 7): per-device "
-        "memory accounting shows each device holds 1/8 of a state whose "
-        "dense working set crowds a single v5e chip",
+        "30 is the per-device memory demo: the accounting shows each "
+        "device holds 1/8 of the state",
     )
     args = ap.parse_args()
 
@@ -136,7 +131,7 @@ def main():
         print(row)
 
     if args.exact_qubits:
-        from qkan_implementation_tpu.sim import simulate
+        from qkan_implementation.sim import simulate
 
         q = args.exact_qubits
         rng = np.random.default_rng(7)
@@ -216,14 +211,10 @@ def main():
             for t in (0, 5, q // 2, q - 2, q - 1)
         ]
         norm = float(jnp.sum(psi.astype(jnp.float32) ** 2))
-        # per-device memory accounting (VERDICT r3 item 7): read bytes off
-        # the live device buffers, then compare the DENSE engine's working
-        # set (in+out state per gate application) against one v5e's 16 GiB
-        # HBM -- at 30q f32 the dense path needs ~8.6 GiB of statevector
-        # buffers alone (plus program + runtime reserve), while each mesh
-        # device holds 0.5 GiB; the same per-device footprint on 8 chips
-        # carries q+3 qubits, which NO single chip can represent.
-        from qkan_implementation_tpu.sim.sharded import shard_memory_report
+        # per-device memory accounting: read bytes off the live device
+        # buffers, next to the DENSE engine's working set (in+out state
+        # per gate application)
+        from qkan_implementation.sim.sharded import shard_memory_report
 
         mem = shard_memory_report(psi)
         assert mem["balanced"] and mem["devices"] == n_dev, mem
@@ -242,8 +233,6 @@ def main():
             "dense_single_chip_working_set_gib": round(
                 2 * mem["logical_bytes"] / 2**30, 4
             ),
-            "v5e_hbm_gib": 16.0,
-            "mesh_equal_footprint_qubits": q + int(np.log2(n_dev)),
             "platform": jax.devices()[0].platform,
         }
         assert row["max_marginal_abs_err"] < 1e-4, row

@@ -5,9 +5,9 @@ structure with the analysis tools.
 Run:  PYTHONPATH=. python examples/analyze_models.py [out_dir]
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()  # set QKAN_PLATFORM=cpu to force CPU in TPU-plugin envs
+enable_compile_cache()
 
 
 import sys
@@ -17,8 +17,8 @@ from pathlib import Path
 import numpy as np
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.analysis import analyze_models
-from qkan_implementation_tpu.models import FixedKAN, FixedKANConfig
+from qkan_implementation.analysis import analyze_models
+from qkan_implementation.models import FixedKAN, FixedKANConfig
 
 
 def main(out_dir: str):

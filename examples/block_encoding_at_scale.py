@@ -5,18 +5,19 @@ The reference's largest exercised encoding is an N*K = 32 diagonal (a
 gate-by-gate unitary accumulation.  This demo block-encodes a matrix
 thousands of times larger and recovers a column from ONE fused
 statevector simulation with runtime rotation parameters
-(``sim.fusion.simulate_fable_runtime`` -- H walls as MXU contractions,
-the multiplexed rotation as a Pallas streaming kernel, the register swap
-as one transpose).  On one TPU v5e chip, n=13 (an 8192x8192 encoding, a
-27-qubit / 134M-amplitude circuit) runs in ~3.5 s.
+(``sim.fusion.simulate_fable_runtime`` -- H walls as register
+contractions, the multiplexed rotation as one fused elementwise pass, the
+register swap as one transpose).  On a GPU, n=13 (an 8192x8192 encoding, a
+27-qubit / 134M-amplitude circuit) fits easily; its time there is not
+measured yet.
 
 Run:  PYTHONPATH=. python examples/block_encoding_at_scale.py --n 10
-      (n=13 on TPU; keep n <= 10 on CPU)
+      (n=13 on a GPU; keep n <= 10 on CPU)
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()
+enable_compile_cache()
 
 import argparse
 import time
@@ -25,8 +26,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable_runtime_params
-from qkan_implementation_tpu.sim.fusion import simulate_fable_runtime
+from qkan_implementation.encoding import fable_runtime_params
+from qkan_implementation.sim.fusion import simulate_fable_runtime
 
 
 def main():
@@ -37,7 +38,6 @@ def main():
     n, col = args.n, args.column
     size = 2**n
     q = 2 * n + 1
-    on_tpu = jax.devices()[0].platform == "tpu"
 
     rng = np.random.default_rng(0)
     diag = rng.uniform(-1, 1, size)
@@ -54,7 +54,7 @@ def main():
 
     @jax.jit
     def encode_column(cs, sn, e):
-        psi = simulate_fable_runtime(cs, sn, n, psi0=e, interpret=not on_tpu)
+        psi = simulate_fable_runtime(cs, sn, n, psi0=e)
         return psi[:size] * (alpha * size)
 
     e = jnp.zeros(2**q, dtype=jnp.float32).at[col].set(1.0)

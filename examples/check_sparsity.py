@@ -5,17 +5,17 @@ profile.
 Run:  PYTHONPATH=. python examples/check_sparsity.py [parquet_path]
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()  # set QKAN_PLATFORM=cpu to force CPU in TPU-plugin envs
+enable_compile_cache()
 
 
 import sys
 import tempfile
 from pathlib import Path
 
-from qkan_implementation_tpu.analysis import compute_sparsity, print_sparsity_analysis
-from qkan_implementation_tpu.data import generate_market_parquet
+from qkan_implementation.analysis import compute_sparsity, print_sparsity_analysis
+from qkan_implementation.data import generate_market_parquet
 
 
 def main(path: str | None):

@@ -9,27 +9,27 @@ stage with FABLE, verify the encodings on the statevector engine at the
 Run:  PYTHONPATH=. python examples/quantum_pipeline_demo.py
 """
 
-from qkan_implementation_tpu.utils.platform import apply_platform_env
+from qkan_implementation.utils.platform import enable_compile_cache
 
-apply_platform_env()  # set QKAN_PLATFORM=cpu to force CPU in TPU-plugin envs
+enable_compile_cache()
 
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable
-from qkan_implementation_tpu.ops import lcu_combine_diag, qkan_layer_forward
-from qkan_implementation_tpu.ops.quantum import (
+from qkan_implementation.encoding import fable
+from qkan_implementation.ops import lcu_combine_diag, qkan_layer_forward
+from qkan_implementation.ops.quantum import (
     qkan_layer_forward_quantum,
     quantum_verify_pipeline,
 )
-from qkan_implementation_tpu.sim import unitary
-from qkan_implementation_tpu.utils.profiling import StageTimer
+from qkan_implementation.sim import unitary
+from qkan_implementation.utils.profiling import StageTimer
 
 
 def main():
-    if jax.devices()[0].platform != "tpu":
+    if jax.devices()[0].platform == "cpu":
         jax.config.update("jax_enable_x64", True)
     N, K, d = 4, 4, 5
     rng = np.random.default_rng(42)

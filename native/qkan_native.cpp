@@ -1,4 +1,4 @@
-// Native runtime components for qkan_implementation_tpu.
+// Native runtime components for qkan_implementation.
 //
 // C++ counterpart of the reference's native dependencies: a dense-QUBO
 // simulated annealer with the same algorithm and energy convention as the

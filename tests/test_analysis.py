@@ -6,7 +6,7 @@ import numpy as np
 import pandas as pd
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.analysis import (
+from qkan_implementation.analysis import (
     SparsityMetrics,
     analyze_models,
     analyze_sample_distribution,
@@ -16,7 +16,7 @@ from qkan_implementation_tpu.analysis import (
     extract_degrees_from_checkpoint,
     print_sparsity_analysis,
 )
-from qkan_implementation_tpu.models import FixedKAN, FixedKANConfig
+from qkan_implementation.models import FixedKAN, FixedKANConfig
 
 
 def test_sparsity_metrics(tmp_path):
@@ -108,7 +108,7 @@ def test_sparsity_clusters_merge_across_chunk_boundaries(tmp_path):
     a chunk boundary was split into fragments that each fell under
     cluster_min_len and vanished."""
     import pandas as pd
-    from qkan_implementation_tpu.analysis.sparsity import compute_sparsity
+    from qkan_implementation.analysis.sparsity import compute_sparsity
 
     n = 60
     col = np.arange(n, dtype=float)
@@ -130,7 +130,7 @@ def test_plot_sample_distributions_widened_labels():
     analyze_sample_distribution's arrays; the bar plot must follow the
     actual array length instead of crashing on a shape mismatch
     (review r3)."""
-    from qkan_implementation_tpu.analysis.mnist_diagnostics import (
+    from qkan_implementation.analysis.mnist_diagnostics import (
         plot_sample_distributions,
     )
 

@@ -8,7 +8,7 @@ optimum (verifiable by brute force / block-wise argmin).
 import numpy as np
 import pytest
 
-from qkan_implementation_tpu.anneal import (
+from qkan_implementation.anneal import (
     QuboModel,
     decode_degrees,
     default_beta_range,
@@ -174,7 +174,7 @@ def test_blocked_kernel_matches_full_on_degree_qubo():
     # penalty barrier), so the paths are compared the way production uses
     # them: through the blockwise one-hot polish, which is deterministic
     # and globally optimal for this separable problem.
-    from qkan_implementation_tpu.anneal import polish_one_hot_blocks
+    from qkan_implementation.anneal import polish_one_hot_blocks
 
     scores = np.array([0.29, 0.13, 0.056, 0.054])
     model = degree_selection_qubo(scores, num_functions=6, complexity_weight=0.1)
@@ -210,7 +210,7 @@ def test_tempering_beta_range_is_median_anchored():
     log(100)/min (useless ladder span -- adjacent rungs never exchange,
     the r5 n=2048 head-to-head regression), while the ladder default
     anchors to the MEDIAN coupling scale."""
-    from qkan_implementation_tpu.anneal import default_tempering_beta_range
+    from qkan_implementation.anneal import default_tempering_beta_range
 
     rng = np.random.default_rng(5)
     n = 64
@@ -233,8 +233,8 @@ def test_tempering_beta_range_is_median_anchored():
 class TestParallelTempering:
     def test_finds_ground_state_dense_qubo(self):
         # dense non-separable Gaussian couplings, verified vs brute force
-        from qkan_implementation_tpu.anneal import parallel_tempering
-        from qkan_implementation_tpu.native_bindings import (
+        from qkan_implementation.anneal import parallel_tempering
+        from qkan_implementation.native_bindings import (
             brute_force_native,
             native_available,
         )
@@ -262,7 +262,7 @@ class TestParallelTempering:
 
     def test_not_worse_than_plain_sa_small_budget(self):
         # same chain budget, frustrated instance: exchanges must not hurt
-        from qkan_implementation_tpu.anneal import (
+        from qkan_implementation.anneal import (
             parallel_tempering,
             simulated_annealing,
         )
@@ -284,8 +284,8 @@ class TestParallelTempering:
 
 
 def test_greedy_descent_reaches_local_optimum():
-    from qkan_implementation_tpu.anneal import greedy_descent, simulated_annealing
-    from qkan_implementation_tpu.native_bindings import (
+    from qkan_implementation.anneal import greedy_descent, simulated_annealing
+    from qkan_implementation.native_bindings import (
         brute_force_native,
         native_available,
     )
@@ -314,9 +314,9 @@ def test_greedy_descent_reaches_local_optimum():
 
 def test_parallel_tempering_sharded_matches_quality():
     import jax
-    from qkan_implementation_tpu.parallel import make_mesh
-    from qkan_implementation_tpu.anneal import parallel_tempering_sharded
-    from qkan_implementation_tpu.native_bindings import (
+    from qkan_implementation.parallel import make_mesh
+    from qkan_implementation.anneal import parallel_tempering_sharded
+    from qkan_implementation.native_bindings import (
         brute_force_native,
         native_available,
     )
@@ -345,12 +345,12 @@ def test_parallel_tempering_sharded_matches_quality():
 
 def test_parallel_tempering_mesh_ladder():
     """One global ladder split across the mesh: boundary replicas exchange
-    over the ICI; quality must match the local-ladder tempering on the same
+    over the mesh; quality must match the local-ladder tempering on the same
     dense frustrated instance, and energies must be self-consistent."""
     import jax
-    from qkan_implementation_tpu.parallel import make_mesh
-    from qkan_implementation_tpu.anneal import parallel_tempering_mesh_ladder
-    from qkan_implementation_tpu.native_bindings import (
+    from qkan_implementation.parallel import make_mesh
+    from qkan_implementation.anneal import parallel_tempering_mesh_ladder
+    from qkan_implementation.native_bindings import (
         brute_force_native,
         native_available,
     )
@@ -380,8 +380,8 @@ def test_parallel_tempering_mesh_ladder():
 def test_mesh_ladder_requires_divisible_replicas():
     import jax
     import pytest
-    from qkan_implementation_tpu.parallel import make_mesh
-    from qkan_implementation_tpu.anneal import parallel_tempering_mesh_ladder
+    from qkan_implementation.parallel import make_mesh
+    from qkan_implementation.anneal import parallel_tempering_mesh_ladder
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -396,7 +396,7 @@ def test_annealer_oracle_sweep_random_dense_qubos():
     exact oracle vectorized), the annealer at a modest budget must hit the
     global optimum on every instance -- a distributional guard the single
     hand-picked instances can't give."""
-    from qkan_implementation_tpu.anneal import solve_qubo
+    from qkan_implementation.anneal import solve_qubo
 
     rng = np.random.default_rng(99)
     for trial in range(10):
@@ -420,7 +420,7 @@ def test_sharded_annealing_multi_axis_mesh():
     shard over axis_name only -- a 2-axis mesh silently returned a quarter
     of the requested reads.  The sharded axis size alone must govern."""
     import jax
-    from qkan_implementation_tpu.anneal import simulated_annealing_sharded
+    from qkan_implementation.anneal import simulated_annealing_sharded
     from jax.sharding import Mesh
 
     if len(jax.devices()) < 8:
@@ -471,7 +471,7 @@ def test_delayed_kernel_quality_matches_sequential_reference():
     on a dense 18-var QUBO with the same read/sweep budget."""
     import jax
     import jax.numpy as jnp
-    from qkan_implementation_tpu.anneal.sa import (
+    from qkan_implementation.anneal.sa import (
         _anneal_kernel,
         default_beta_range,
     )
@@ -498,11 +498,11 @@ def test_delayed_kernel_quality_matches_sequential_reference():
 
 
 def test_delayed_tempering_matches_reference_kernel_quality():
-    """The delayed-update tempering kernel (TPU schedule) and the
+    """The delayed-update tempering kernel and the
     per-variable reference kernel must both reach the brute-force ground
     state on a dense QUBO, with energies consistent with samples."""
-    from qkan_implementation_tpu.anneal import parallel_tempering
-    from qkan_implementation_tpu.native_bindings import (
+    from qkan_implementation.anneal import parallel_tempering
+    from qkan_implementation.native_bindings import (
         brute_force_native,
         native_available,
     )
@@ -531,7 +531,7 @@ def test_unknown_kernel_and_backend_raise():
     parallel_tempering(kernel=...) and simulated_annealing(backend=...)
     validate their enum-ish strings like every other new param."""
     import pytest
-    from qkan_implementation_tpu.anneal.sa import parallel_tempering
+    from qkan_implementation.anneal.sa import parallel_tempering
 
     rng = np.random.default_rng(0)
     n = 6
@@ -552,7 +552,7 @@ def test_sweep_block_validation():
     not ZeroDivisionError or a deep reshape error (review r3); an explicit
     valid block still produces the block-invariant result."""
     import pytest
-    from qkan_implementation_tpu.anneal.sa import parallel_tempering
+    from qkan_implementation.anneal.sa import parallel_tempering
 
     rng = np.random.default_rng(1)
     n = 8

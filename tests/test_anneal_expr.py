@@ -4,8 +4,8 @@ degree-selection assembly (the two must produce identical energies)."""
 import numpy as np
 import pytest
 
-from qkan_implementation_tpu.anneal import degree_selection_qubo
-from qkan_implementation_tpu.anneal.expr import (
+from qkan_implementation.anneal import degree_selection_qubo
+from qkan_implementation.anneal.expr import (
     Array,
     Binary,
     Constraint,

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qkan_implementation_tpu.utils.checkpoint import (
+from qkan_implementation.utils.checkpoint import (
     load_npz,
     load_pytree,
     save_npz,

@@ -11,18 +11,18 @@ import pandas as pd
 import pytest
 import yaml
 
-from qkan_implementation_tpu.data import (
+from qkan_implementation.data import (
     DataPipeline,
     generate_market_parquet,
     load_mnist,
     to_one_hot,
 )
-from qkan_implementation_tpu.experiments import (
+from qkan_implementation.experiments import (
     load_config,
     get_default_features,
     run_experiment,
 )
-from qkan_implementation_tpu.experiments.config import DataConfig
+from qkan_implementation.experiments.config import DataConfig
 
 
 def small_config(tmp_path, n_features=4, n_rows=400):
@@ -252,8 +252,8 @@ def test_run_experiment_with_degree_cv(tmp_path):
     # evaluate_degree_cv over time folds instead of in-sample
     import yaml
 
-    from qkan_implementation_tpu.data.pipeline import generate_market_parquet
-    from qkan_implementation_tpu.experiments.main import run_experiment
+    from qkan_implementation.data.pipeline import generate_market_parquet
+    from qkan_implementation.experiments.main import run_experiment
 
     parquet = generate_market_parquet(
         tmp_path / "data.parquet", n_rows=1200, n_features=6, seed=0
@@ -288,7 +288,7 @@ def test_run_experiment_with_degree_cv(tmp_path):
     cfg_path.write_text(yaml.safe_dump(cfg))
     # spy: the CV scoring path must actually run (count/finiteness hold
     # with CV silently disabled, e.g. a dropped or renamed degree_cv key)
-    from qkan_implementation_tpu.optim.degree_optimizer import DegreeOptimizer
+    from qkan_implementation.optim.degree_optimizer import DegreeOptimizer
 
     calls = {}
     orig_cv = DegreeOptimizer.evaluate_degree_cv
@@ -312,7 +312,7 @@ def test_metrics_integer_targets_and_small_scale():
     crash on jnp.finfo of an int dtype); tiny-magnitude targets must not be
     zeroed by an absolute-eps degeneracy guard; all-zero weights return the
     same guarded 0.0 across mse and both R^2 flavors."""
-    from qkan_implementation_tpu.utils.metrics import (
+    from qkan_implementation.utils.metrics import (
         mse,
         r2_score,
         weighted_competition_r2,
@@ -332,7 +332,7 @@ def test_metrics_integer_targets_and_small_scale():
 
 
 def test_pairwise_exchange_validates_inputs():
-    from qkan_implementation_tpu.parallel.collectives import pairwise_exchange
+    from qkan_implementation.parallel.collectives import pairwise_exchange
 
     with pytest.raises(ValueError, match="power-of-two"):
         pairwise_exchange(np.zeros(4), "d", 1, 6)
@@ -347,7 +347,7 @@ def test_generate_market_parquet_top_profile(tmp_path):
     guard."""
     import pandas as pd
 
-    from qkan_implementation_tpu.data.pipeline import generate_market_parquet
+    from qkan_implementation.data.pipeline import generate_market_parquet
 
     p = generate_market_parquet(
         tmp_path / "top.parquet", n_rows=4000, n_features=8, n_dates=40,

@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from qkan_implementation_tpu.parallel import make_mesh
-from qkan_implementation_tpu.sim import Circuit, simulate
-from qkan_implementation_tpu.sim.sharded import sharded_simulate
+from qkan_implementation.parallel import make_mesh
+from qkan_implementation.sim import Circuit, simulate
+from qkan_implementation.sim.sharded import sharded_simulate
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +112,7 @@ def test_qr_sweep_matches_svd_scoring(data):
     T_0 blocks plus upsampled-pixel-style near-duplicates).  Scores must
     be finite, near-equal on well-conditioned directions, and induce the
     same degree ordering."""
-    from qkan_implementation_tpu.models.fixed_kan import (
+    from qkan_implementation.models.fixed_kan import (
         FixedKAN,
         FixedKANConfig,
     )
@@ -157,11 +157,10 @@ def test_qr_sweep_matches_svd_scoring(data):
 
 @settings(max_examples=8, deadline=None)
 @given(data=st.data())
-def test_rdma_h_wall_schedule_matches_collective_and_dense(data, mesh8):
-    """Fuzz the fused-RDMA H-wall scheduler (locals-first since review
-    r3) at kernel-eligible sizes: random walls over arbitrary qubit
-    subsets interleaved with swaps/ucry must match both the collective
-    exchange path and the dense engine exactly, whatever mix of
+def test_h_wall_schedule_matches_both_exchange_impls_and_dense(data, mesh8):
+    """Fuzz the sharded H-wall scheduler: random walls over arbitrary
+    qubit subsets interleaved with swaps/ucry must match the dense engine
+    exactly through both exchange collectives, whatever mix of
     global/local/MSB members the wall draws."""
     q = data.draw(st.integers(13, 14), label="q")
     circ = Circuit(q)
@@ -191,9 +190,9 @@ def test_rdma_h_wall_schedule_matches_collective_and_dense(data, mesh8):
     psi0 = rng.standard_normal(2**q)
     psi0 = jnp.asarray(psi0 / np.linalg.norm(psi0))
     want = np.asarray(simulate(circ, psi0=psi0, backend="xla"))
-    got_rdma = np.asarray(
+    got_a2a = np.asarray(
         jax.device_get(
-            sharded_simulate(circ, mesh8, psi0=psi0, exchange_impl="rdma")
+            sharded_simulate(circ, mesh8, psi0=psi0, exchange_impl="all_to_all")
         )
     )
     got_col = np.asarray(
@@ -203,5 +202,5 @@ def test_rdma_h_wall_schedule_matches_collective_and_dense(data, mesh8):
             )
         )
     )
-    np.testing.assert_allclose(got_rdma, want, atol=1e-11)
+    np.testing.assert_allclose(got_a2a, want, atol=1e-11)
     np.testing.assert_allclose(got_col, want, atol=1e-11)

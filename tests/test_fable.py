@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable, gray_code, gray_permutation, sfwht
-from qkan_implementation_tpu.sim import unitary
+from qkan_implementation.encoding import fable, gray_code, gray_permutation, sfwht
+from qkan_implementation.sim import unitary
 
 
 def verify_block_encoding(a, tol=1e-6, check_structure=True, **fable_kwargs):
@@ -80,7 +80,7 @@ def test_dilated_chebyshev_1e15(fused):
     # The reference's tightest tolerance: dilated Chebyshev diag, N=4, deg 8,
     # relative error < 1e-15 (ChebyshevStep.py:117-134).  Met exactly on the
     # x64 suite (measured floor ~5e-16 fused / ~6e-16 elementary).
-    from qkan_implementation_tpu.ops import dilated_chebyshev_diag
+    from qkan_implementation.ops import dilated_chebyshev_diag
 
     rng = np.random.default_rng(42)
     x = rng.uniform(-1, 1, 4)
@@ -137,7 +137,7 @@ def test_compression_drops_gates():
 def test_weighted_chebyshev_block_encoding():
     # Reference MulStep test: degree-1 weighted Chebyshev, N=K=2
     # (MulStep.py:190-213).
-    from qkan_implementation_tpu.ops import weighted_chebyshev_diag
+    from qkan_implementation.ops import weighted_chebyshev_diag
 
     x = jnp.asarray([0.5, -0.5])
     weights = jnp.asarray([1.0, 0.5, -0.5, -1.0])
@@ -150,7 +150,7 @@ def test_weighted_chebyshev_block_encoding():
 def test_lcu_block_encoding_power_of_two():
     # Reference LCU sweep shape {N=4, K=4, d=5} (LCUStep.py:109-161), at the
     # 1e-6 contract.
-    from qkan_implementation_tpu.ops import lcu_combine_diag
+    from qkan_implementation.ops import lcu_combine_diag
 
     rng = np.random.default_rng(42)
     N, K, d = 4, 4, 5
@@ -162,7 +162,7 @@ def test_lcu_block_encoding_power_of_two():
 
 def test_sum_step_block_encoding():
     # Reference SUMStep simple case (SUMStep.py:80-102): K x K output diag.
-    from qkan_implementation_tpu.ops import sum_step
+    from qkan_implementation.ops import sum_step
 
     N = K = 2
     input_vals = jnp.asarray([1.0, 0.5, -0.5, -1.0])
@@ -175,7 +175,7 @@ def test_runtime_params_rejects_complex():
     """Regression: fable() rejects complex matrices but
     fable_runtime_params silently dropped the imaginary part and encoded
     Re(a)."""
-    from qkan_implementation_tpu.encoding.fable import fable_runtime_params
+    from qkan_implementation.encoding.fable import fable_runtime_params
 
     a = np.eye(4) + 1j * np.ones((4, 4))
     with pytest.raises(ValueError, match="real"):

@@ -1,8 +1,9 @@
-"""Pallas-fused FixedKAN layer (ops/fused_layer.py) vs the XLA path.
+"""Fused FixedKAN layer kernel (ops/fused_layer.py) vs the XLA path.
 
-Runs in interpret mode on the CPU suite (kan_layer_apply selects it off
-the platform); on TPU the same code compiles to a real kernel -- the
-flagship train-step benchmark A/Bs it there.
+The kernel's arithmetic runs here in Pallas interpret mode; the compiled
+Triton kernel runs only on a GPU (the ``gpu``-marked cases, and phase 6 of
+chip_smoke.py).  The wrapper's padding, layout, gradient rule and backend
+choice are plain Python and are tested here directly.
 """
 
 import numpy as np
@@ -10,11 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.models.fixed_kan import (
+import qkan_implementation.models.fixed_kan as fk
+from qkan_implementation.models.fixed_kan import (
+    choose_layer_backend,
     kan_apply,
     kan_layer_apply,
 )
-from qkan_implementation_tpu.ops.fused_layer import kan_layer_fused
+from qkan_implementation.ops import fused_layer
+from qkan_implementation.ops.fused_layer import kan_layer_fused
 
 
 def random_layer(rng, in_dim, out, T, D, ragged=True):
@@ -32,23 +36,38 @@ def random_layer(rng, in_dim, out, T, D, ragged=True):
     }
 
 
-def test_fused_forward_matches_xla_backend():
-    rng = np.random.default_rng(0)
-    D = 5
-    lp = random_layer(rng, 23, 7, 4, D)
-    x = jnp.asarray(rng.uniform(-2, 2, (37, 23)))  # non-tile-multiple batch
+def _degree_major_reference(x, w_dm, dp1, apply_tanh=True):
+    t = np.tanh(np.asarray(x)) if apply_tanh else np.asarray(x)
+    ts = [np.ones_like(t), t]
+    for _ in range(2, dp1):
+        ts.append(2.0 * t * ts[-1] - ts[-2])
+    return np.concatenate(ts[:dp1], axis=1) @ np.asarray(w_dm)
+
+
+# batch / input widths straddle the 64-row and 32-column tiles; T spans
+# the 16-wide floor of the Triton dot and a padded 17 -> 32
+@pytest.mark.parametrize(
+    "in_dim,out,T,D,batch",
+    [(23, 7, 4, 5, 37), (33, 3, 17, 3, 70), (64, 2, 10, 5, 65), (5, 2, 1, 0, 9)],
+)
+def test_fused_forward_matches_xla_backend(in_dim, out, T, D, batch):
+    rng = np.random.default_rng(in_dim)
+    lp = random_layer(rng, in_dim, out, T, D)
+    x = jnp.asarray(rng.uniform(-2, 2, (batch, in_dim)))
     want = np.asarray(kan_layer_apply(lp, x, D, backend="xla"))
     got = np.asarray(kan_layer_apply(lp, x, D, backend="fused"))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-def test_fused_gradients_match_xla_backend():
-    rng = np.random.default_rng(1)
-    D = 4
-    lp = random_layer(rng, 11, 5, 3, D)
-    x = jnp.asarray(rng.uniform(-1.5, 1.5, (19, 11)))
-    y = jnp.asarray(rng.normal(0, 1, (19, 3)))
-
+@pytest.mark.parametrize("in_dim,out,T,D,batch", [(11, 5, 3, 4, 19), (40, 3, 12, 2, 67)])
+def test_fused_gradients_match_xla_backend(in_dim, out, T, D, batch):
+    """The custom VJP (dx and dW kernels) against autodiff of the XLA
+    layer, through the coefficient fold."""
+    rng = np.random.default_rng(batch)
+    lp = random_layer(rng, in_dim, out, T, D)
+    x = jnp.asarray(rng.uniform(-1.5, 1.5, (batch, in_dim)))
+    y = jnp.asarray(rng.normal(0, 1, (batch, T)))
     degs = lp["degrees"]
 
     def loss(tp, x, backend):
@@ -63,71 +82,75 @@ def test_fused_gradients_match_xla_backend():
     )
     for k in ("coefficients", "horizontal_weights"):
         np.testing.assert_allclose(
-            np.asarray(gp_f[k]),
-            np.asarray(gp_x[k]),
-            rtol=1e-4,
-            atol=1e-6,
-            err_msg=k,
+            np.asarray(gp_f[k]), np.asarray(gp_x[k]),
+            rtol=1e-4, atol=1e-6, err_msg=k,
         )
 
 
 def test_fused_multi_layer_and_jit():
     rng = np.random.default_rng(2)
     D = 3
-    params = [
-        random_layer(rng, 6, 4, 5, D),
-        random_layer(rng, 5, 3, 2, D),
-    ]
+    params = [random_layer(rng, 6, 4, 5, D), random_layer(rng, 5, 3, 2, D)]
     x = jnp.asarray(rng.uniform(-1, 1, (16, 6)))
     want = np.asarray(kan_apply(params, x, D))
     got = np.asarray(
         jax.jit(lambda p, x: kan_apply(p, x, D, backend="fused"))(params, x)
     )
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-def test_fused_bf16_compute_dtype():
-    rng = np.random.default_rng(3)
-    D = 5
-    lp = random_layer(rng, 32, 4, 3, D, ragged=False)
-    x = jnp.asarray(rng.uniform(-1, 1, (24, 32)).astype(np.float32))
-    exact = np.asarray(kan_layer_apply(lp, x, D))
-    got = kan_layer_apply(lp, x, D, jnp.bfloat16, backend="fused")
-    assert got.dtype == jnp.float32
-    scale = np.std(exact) + 1e-9
-    assert np.max(np.abs(np.asarray(got) - exact)) < 0.1 * max(scale, 1.0)
-
-
-def test_fused_rejects_int8():
+@pytest.mark.parametrize("cd", [jnp.bfloat16, jnp.int8, "int8x2"])
+def test_fused_rejects_compute_dtypes(cd):
     rng = np.random.default_rng(4)
     lp = random_layer(rng, 4, 2, 2, 2)
     x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
-    with pytest.raises(ValueError, match="int8"):
-        kan_layer_apply(lp, x, 2, jnp.int8, backend="fused")
+    with pytest.raises(ValueError, match="f32 only"):
+        kan_layer_apply(lp, x, 2, cd, backend="fused")
+
+
+def test_fused_rejects_precision_without_a_kernel_mode():
+    rng = np.random.default_rng(4)
+    lp = random_layer(rng, 4, 2, 2, 2)
+    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
+    with pytest.raises(ValueError, match="no mode"):
+        kan_layer_apply(lp, x, 2, backend="fused", matmul_precision="highest")
 
 
 def test_fused_raw_op_degree_major_contract():
-    """kan_layer_fused consumes DEGREE-MAJOR w2[d*in + i, t]."""
+    """kan_layer_fused consumes DEGREE-MAJOR w[d*in + i, t]."""
     rng = np.random.default_rng(5)
     in_dim, T, dp1 = 9, 2, 4
     w_dm = jnp.asarray(rng.normal(0, 1, (dp1 * in_dim, T)))
     x = jnp.asarray(rng.uniform(-2, 2, (13, in_dim)))
-    got = np.asarray(kan_layer_fused(x, w_dm, dp1, True))
-    t = np.tanh(np.asarray(x))
-    ts = [np.ones_like(t), t]
-    for _ in range(2, dp1):
-        ts.append(2.0 * t * ts[-1] - ts[-2])
-    basis = np.concatenate(ts[:dp1], axis=1)
-    want = basis @ np.asarray(w_dm)
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    got = np.asarray(kan_layer_fused(x, w_dm, dp1, interpret=True))
+    want = _degree_major_reference(x, w_dm, dp1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_bf16x3_mode_matches_default():
+    """'bf16x3' (three bf16 passes) is f32-accurate: it agrees with the
+    exact interpret-mode dot to f32 rounding."""
+    rng = np.random.default_rng(6)
+    in_dim, T, dp1 = 45, 10, 6
+    w_dm = jnp.asarray(rng.normal(0, 0.1, (dp1 * in_dim, T)), jnp.float32)
+    x = jnp.asarray(rng.uniform(-2, 2, (70, in_dim)), jnp.float32)
+    got = np.asarray(kan_layer_fused(x, w_dm, dp1, "bf16x3", interpret=True))
+    want = _degree_major_reference(x, w_dm, dp1)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_unknown_precision_raises():
+    x = jnp.zeros((4, 3))
+    w = jnp.zeros((6, 2))
+    with pytest.raises(KeyError):
+        kan_layer_fused(x, w, 2, "highest", interpret=True)
 
 
 def test_fused_raw_chebyshev_mode_matches_qkan_layer():
     """apply_tanh=False runs the recurrence on raw x: forward AND both
     cotangents must match qkan_layer_forward_batched (the QKANLayer
-    semantics, tanh upstream) under the degree-major weight fold -- the
-    contract the r4 K=128 MFU shootout relies on."""
-    from qkan_implementation_tpu.ops.qkan_layer import (
+    semantics, tanh upstream) under the degree-major weight fold."""
+    from qkan_implementation.ops.qkan_layer import (
         qkan_layer_forward_batched,
         qkan_weight_tensor,
     )
@@ -143,7 +166,7 @@ def test_fused_raw_chebyshev_mode_matches_qkan_layer():
     def fused(x, w):
         M = qkan_weight_tensor(w, N, K)
         w2 = M.transpose(2, 1, 0).reshape(-1, K)
-        return kan_layer_fused(x, w2, D + 1, True, False)  # interpret, no tanh
+        return kan_layer_fused(x, w2, D + 1, apply_tanh=False, interpret=True)
 
     np.testing.assert_allclose(
         np.asarray(fused(x, w)), np.asarray(ref(x, w)), rtol=1e-5, atol=1e-5
@@ -160,234 +183,110 @@ def test_fused_raw_chebyshev_mode_matches_qkan_layer():
     np.testing.assert_allclose(np.asarray(dw_f), np.asarray(dw_r), rtol=1e-4, atol=1e-5)
 
 
-def test_fused_tanh_mode_unchanged_by_flag_default():
-    """The apply_tanh flag must default to the original tanh semantics."""
-    rng = np.random.default_rng(8)
-    in_dim, T, dp1 = 5, 3, 4
-    w_dm = jnp.asarray(rng.normal(0, 1, (dp1 * in_dim, T)))
-    x = jnp.asarray(rng.uniform(-2, 2, (9, in_dim)))
-    np.testing.assert_array_equal(
-        np.asarray(kan_layer_fused(x, w_dm, dp1, True)),
-        np.asarray(kan_layer_fused(x, w_dm, dp1, True, True)),
-    )
-
-
-def test_fused_train_step_matches_jax_grad():
-    """kan_train_step_fused: one-kernel fwd+loss+dW must equal jax.grad
-    of the plain XLA forward for both losses, honor apply_tanh/tile_b,
-    and reject non-multiple batches (padding would bias 'mse')."""
-    from qkan_implementation_tpu.ops.chebyshev import chebyshev_basis
-    from qkan_implementation_tpu.ops.fused_layer import kan_train_step_fused
-
-    rng = np.random.default_rng(5)
-    B, n, dp1, T = 512, 16, 8, 16
-    x = jnp.asarray(rng.uniform(-1, 1, (B, n)), dtype=jnp.float32)
-    w2 = jnp.asarray(rng.uniform(-1, 1, (dp1 * n, T)), dtype=jnp.float32)
-    y = jnp.asarray(rng.normal(0, 1, (B, T)), dtype=jnp.float32)
-
-    def fwd(w, tanh):
-        t = jnp.tanh(x) if tanh else x
-        bas = chebyshev_basis(t, dp1 - 1, clip=False)
-        return bas.transpose(0, 2, 1).reshape(B, -1) @ w
-
-    for loss_name, tanh, lf in [
-        ("sumsq", True, lambda w: jnp.sum(fwd(w, True) ** 2)),
-        ("mse", True, lambda w: jnp.mean((fwd(w, True) - y) ** 2)),
-        ("sumsq", False, lambda w: jnp.sum(fwd(w, False) ** 2)),
-    ]:
-        ref_l, ref_dw = lf(w2), jax.grad(lf)(w2)
-        got_l, got_dw = kan_train_step_fused(
-            x, w2, dp1, y=(y if loss_name == "mse" else None),
-            loss=loss_name, interpret=True, apply_tanh=tanh, tile_b=128,
-        )
-        np.testing.assert_allclose(
-            float(got_l), float(ref_l), rtol=1e-5
-        )
-        rel = float(
-            jnp.linalg.norm(got_dw - ref_dw) / jnp.linalg.norm(ref_dw)
-        )
-        assert rel < 1e-5, (loss_name, tanh, rel)
-
-    with pytest.raises(ValueError, match="multiple of the tile"):
-        kan_train_step_fused(x[:300], w2, dp1, interpret=True, tile_b=256)
-    with pytest.raises(ValueError, match="needs targets"):
-        kan_train_step_fused(x, w2, dp1, loss="mse", interpret=True)
-    with pytest.raises(ValueError, match="unknown loss"):
-        kan_train_step_fused(x, w2, dp1, loss="mae", interpret=True)
-    with pytest.raises(ValueError, match="unknown fused precision"):
-        kan_train_step_fused(x, w2, dp1, interpret=True, precision="x9")
-
-
-def test_fused_layer_precision_and_tile_knobs():
-    """precision='default'/tile_b overrides keep forward+grad parity in
-    interpret mode (where both resolve to exact host dots)."""
-    rng = np.random.default_rng(6)
-    B, n, dp1, T = 300, 8, 4, 8  # non-multiple batch exercises padding
-    x = jnp.asarray(rng.uniform(-1, 1, (B, n)), dtype=jnp.float32)
-    w2 = jnp.asarray(rng.uniform(-1, 1, (dp1 * n, T)), dtype=jnp.float32)
-    base = kan_layer_fused(x, w2, dp1, True, True)
-    alt = kan_layer_fused(x, w2, dp1, True, True, "default", 64)
-    np.testing.assert_allclose(np.asarray(base), np.asarray(alt), rtol=1e-6)
-    g1 = jax.grad(
-        lambda w: jnp.sum(kan_layer_fused(x, w, dp1, True, True) ** 2)
-    )(w2)
-    g2 = jax.grad(
-        lambda w: jnp.sum(
-            kan_layer_fused(x, w, dp1, True, True, "default", 64) ** 2
-        )
-    )(w2)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), rtol=1e-5)
-
-
-def test_degreewise_kernel_matches_v1_and_xla():
-    """v2 degree-wise schedule: same contract as kan_layer_fused (fwd +
-    custom VJP) without materializing the basis -- parity across
-    precisions, apply_tanh modes, dp1=1 edge, and non-tile batches."""
-    from qkan_implementation_tpu.ops.chebyshev import chebyshev_basis
-    from qkan_implementation_tpu.ops.fused_layer import kan_layer_fused_dw
-
-    rng = np.random.default_rng(5)
-    for (B, n, dp1, T, tanh) in [
-        (96, 24, 6, 32, True),
-        (64, 16, 8, 16, False),
-        (40, 8, 1, 4, True),
-        (33, 5, 2, 3, True),  # non-multiple batch exercises padding
-    ]:
-        lo, hi = (-2, 2) if tanh else (-0.95, 0.95)
-        x = jnp.asarray(
-            rng.uniform(lo, hi, (B, n)).astype(np.float32)
-        )
-        w2 = jnp.asarray(
-            rng.normal(0, 0.5, (dp1 * n, T)).astype(np.float32)
-        )
-
-        def ref_fn(x, w2):
-            t = jnp.tanh(x) if tanh else x
-            bas = chebyshev_basis(t, dp1 - 1, clip=False)
-            return bas.transpose(0, 2, 1).reshape(B, -1) @ w2
-
-        for prec in ("high", "default", "bf16"):
-            out = kan_layer_fused_dw(x, w2, dp1, True, tanh, prec)
-            ref = ref_fn(x, w2)
-            tol, gtol = (1e-4, 1e-3) if prec != "bf16" else (0.15, 1.0)
-            assert float(jnp.max(jnp.abs(out - ref))) < tol
-
-            g_ref = jax.grad(
-                lambda x, w: jnp.sum(jnp.sin(ref_fn(x, w))),
-                argnums=(0, 1),
-            )(x, w2)
-            g_dw = jax.grad(
-                lambda x, w: jnp.sum(
-                    jnp.sin(kan_layer_fused_dw(x, w, dp1, True, tanh, prec))
-                ),
-                argnums=(0, 1),
-            )(x, w2)
-            for a, b in zip(g_ref, g_dw):
-                assert float(jnp.max(jnp.abs(a - b))) < gtol
-
-
-def test_degreewise_rejects_unknown_precision():
-    from qkan_implementation_tpu.ops.fused_layer import kan_layer_fused_dw
-
-    x = jnp.zeros((8, 4), jnp.float32)
-    w2 = jnp.zeros((8, 2), jnp.float32)
-    with pytest.raises(ValueError, match="precision"):
-        kan_layer_fused_dw(x, w2, 2, True, True, "bf32")
-
-
-def test_fused_dw_backend_matches_xla_backend():
-    """backend='fused_dw' through kan_layer_apply/kan_apply: forward and
-    gradient parity with the xla backend, plus the bf16 compute_dtype
-    class staying in f32-output contract."""
+def test_pad_weights_layout():
+    """Degree-major [dp1*in, T] -> [dp1, in_pad, T_pad], zeros in the pad,
+    in_pad a multiple of the column chunk and T_pad a power of two >= 16."""
     rng = np.random.default_rng(9)
-    D = 5
-    lp = random_layer(rng, 23, 7, 4, D)
-    x = jnp.asarray(rng.uniform(-2, 2, (37, 23)))
-    want = np.asarray(kan_layer_apply(lp, x, D, backend="xla"))
-    got = np.asarray(kan_layer_apply(lp, x, D, backend="fused_dw"))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    dp1, cols, T = 3, 45, 17
+    w = rng.normal(size=(dp1 * cols, T)).astype(np.float32)
+    wp = np.asarray(fused_layer._pad_weights(jnp.asarray(w), dp1, cols))
+    assert wp.shape[0] == dp1
+    assert wp.shape[1] % fused_layer._BN == 0 and wp.shape[1] >= cols
+    assert wp.shape[2] == 32
+    np.testing.assert_array_equal(wp[:, :cols, :T], w.reshape(dp1, cols, T))
+    assert not wp[:, cols:, :].any() and not wp[:, :, T:].any()
+    assert fused_layer._pad_t(10) == 16 and fused_layer._pad_t(16) == 16
 
-    out_bf16 = kan_layer_apply(
-        lp, x, D, backend="fused_dw", compute_dtype=jnp.bfloat16
+
+def test_backward_returns_input_dtypes():
+    """dx and dW come back in the input dtypes (f64 under x64)."""
+    rng = np.random.default_rng(10)
+    x = jnp.asarray(rng.uniform(-1, 1, (9, 5)))
+    w = jnp.asarray(rng.normal(size=(15, 3)))
+    dx, dw = jax.grad(
+        lambda x, w: jnp.sum(kan_layer_fused(x, w, 3, interpret=True)),
+        argnums=(0, 1),
+    )(x, w)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    assert dx.shape == x.shape and dw.shape == w.shape
+
+
+# -- backend choice ----------------------------------------------------------
+
+
+def test_choose_backend_is_xla_off_the_gpu():
+    assert jax.default_backend() == "cpu"
+    assert choose_layer_backend(4704, None, None) == "xla"
+
+
+@pytest.mark.parametrize(
+    "fan_in,compute_dtype,precision,want",
+    [
+        (4704, None, None, "fused"),  # flagship layer 0, training (TF32)
+        (4704, None, "BF16_BF16_F32_X3", "fused"),  # layer 0, serving
+        (512, None, None, "fused"),  # the wide-layer threshold
+        (511, None, None, "xla"),  # narrow: XLA's matmul is as fast
+        (60, None, None, "xla"),  # flagship hidden layers
+        (4704, None, "highest", "xla"),  # no full-f32 kernel mode
+        (4704, None, "high", "xla"),
+        (4704, jnp.bfloat16, None, "xla"),  # bf16io recipe
+        (4704, "int8x2", None, "xla"),
+    ],
+)
+def test_choose_backend_on_gpu(monkeypatch, fan_in, compute_dtype, precision, want):
+    monkeypatch.setattr(fk.jax, "default_backend", lambda: "gpu")
+    assert choose_layer_backend(fan_in, compute_dtype, precision) == want
+
+
+@pytest.mark.parametrize(
+    "precision,mode",
+    [(None, "default"), ("default", "default"),
+     ("BF16_BF16_F32_X3", "bf16x3"), ("highest", None), ("high", None)],
+)
+def test_kernel_mode_mapping(precision, mode):
+    assert fk._kernel_mode(precision) == mode
+
+
+def test_auto_backend_reads_the_ambient_precision(monkeypatch):
+    """backend='auto' with matmul_precision=None follows the ambient
+    jax.default_matmul_precision: a 'highest' context keeps XLA."""
+    seen = []
+    monkeypatch.setattr(
+        fk, "choose_layer_backend",
+        lambda fan_in, cd, prec: seen.append(prec) or "xla",
     )
-    assert out_bf16.dtype == jnp.float32
-    assert (
-        float(jnp.max(jnp.abs(out_bf16 - want)))
-        < 0.1 * float(jnp.max(jnp.abs(want))) + 0.05
-    )
-
-    degs = lp["degrees"]
-    y = jnp.asarray(rng.normal(0, 1, (37, 4)))
-
-    def loss(tp, x, backend):
-        out = kan_layer_apply(dict(tp, degrees=degs), x, D, backend=backend)
-        return jnp.mean((out - y) ** 2)
-
-    tp = {k: v for k, v in lp.items() if k != "degrees"}
-    gp_x, gx_x = jax.grad(loss, argnums=(0, 1))(tp, x, "xla")
-    gp_f, gx_f = jax.grad(loss, argnums=(0, 1))(tp, x, "fused_dw")
-    np.testing.assert_allclose(
-        np.asarray(gx_f), np.asarray(gx_x), rtol=1e-4, atol=1e-5
-    )
-    for k in gp_x:
-        np.testing.assert_allclose(
-            np.asarray(gp_f[k]), np.asarray(gp_x[k]), rtol=1e-4, atol=1e-5
-        )
-
-
-def test_fused_dw_rejects_int8():
-    rng = np.random.default_rng(2)
-    lp = random_layer(rng, 6, 3, 2, 3)
-    x = jnp.asarray(rng.uniform(-1, 1, (8, 6)))
-    with pytest.raises(ValueError, match="int8"):
-        kan_layer_apply(lp, x, 3, backend="fused_dw", compute_dtype="int8x2")
-
-
-def test_fused_dw_maps_xla_precision_names():
-    """A config tuned on the xla backend (matmul_precision 'highest' /
-    'bf16x2_w' / 'bf16x2_x') must run on backend='fused_dw' by mapping to
-    the kernel's nearest mode ('high', its accuracy ceiling) instead of
-    crashing in the kernel's mode check."""
-    rng = np.random.default_rng(4)
-    D = 4
-    lp = random_layer(rng, 12, 5, 3, D)
-    x = jnp.asarray(rng.uniform(-2, 2, (16, 12)))
-    want = np.asarray(kan_layer_apply(lp, x, D, backend="xla"))
-    for prec in ("highest", "bf16x2_w", "bf16x2_x", "high", "auto", None):
-        got = np.asarray(
-            kan_layer_apply(
-                lp, x, D, backend="fused_dw", matmul_precision=prec
-            )
-        )
-        # interpret mode runs true-f32 dots in every mapped mode
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def test_fused_dw_bf16_class_feeds_bf16_input():
-    """compute_dtype=bfloat16 on fused_dw streams x to the kernel AT bf16
-    (the bf16io recipe: tanh + recurrence in bf16, f32 accumulation) --
-    the dispatch must not silently upcast the input back to f32."""
-    from unittest import mock
-
     rng = np.random.default_rng(11)
-    D = 3
-    lp = random_layer(rng, 6, 4, 2, D)
-    x = jnp.asarray(rng.uniform(-1, 1, (8, 6)))
-    seen = {}
-    from qkan_implementation_tpu.ops import fused_layer
+    lp = random_layer(rng, 4, 2, 2, 2)
+    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
+    with jax.default_matmul_precision("highest"):
+        kan_layer_apply(lp, x, 2, matmul_precision=None)
+    kan_layer_apply(lp, x, 2, matmul_precision=None)
+    assert seen == ["highest", None]
 
-    orig = fused_layer.kan_layer_fused_dw
 
-    def spy(xin, *a, **k):
-        seen["dtype"] = xin.dtype
-        return orig(xin, *a, **k)
+# -- on the card ---------------------------------------------------------------
 
-    with mock.patch.object(fused_layer, "kan_layer_fused_dw", spy):
-        kan_layer_apply(
-            lp, x, D, backend="fused_dw", compute_dtype=jnp.bfloat16
-        )
-    assert seen["dtype"] == jnp.bfloat16
-    seen.clear()
-    with mock.patch.object(fused_layer, "kan_layer_fused_dw", spy):
-        kan_layer_apply(lp, x, D, backend="fused_dw")
-    assert seen["dtype"] == jnp.float32
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["default", "bf16x3"])
+def test_compiled_kernel_matches_reference_on_gpu(gpu, mode):
+    """The Triton-compiled kernel at the flagship layer-0 width, forward
+    and weight gradient, against a full-f32 XLA reference."""
+    rng = np.random.default_rng(12)
+    B, n, T, dp1 = 2048, 784, 10, 6
+    x = jnp.asarray(rng.uniform(0, 1, (B, n)), jnp.float32)
+    w = jnp.asarray(rng.normal(0, 0.02, (dp1 * n, T)), jnp.float32)
+    g = jnp.asarray(rng.normal(size=(B, T)), jnp.float32)
+    want = _degree_major_reference(x, w, dp1)
+    got = np.asarray(jax.jit(lambda x, w: kan_layer_fused(x, w, dp1, mode))(x, w))
+    tol = 2e-3 if mode == "default" else 1e-5  # TF32 keeps 11 bits
+    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < tol
+    t = np.tanh(np.asarray(x, np.float64))
+    ts = [np.ones_like(t), t]
+    for _ in range(2, dp1):
+        ts.append(2.0 * t * ts[-1] - ts[-2])
+    dw_want = np.concatenate(ts, axis=1).T @ np.asarray(g, np.float64)
+    dw = np.asarray(jax.jit(jax.grad(
+        lambda w: jnp.sum(kan_layer_fused(x, w, dp1, mode) * g)
+    ))(w))
+    assert np.max(np.abs(dw - dw_want)) / np.max(np.abs(dw_want)) < tol

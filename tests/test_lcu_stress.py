@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable
-from qkan_implementation_tpu.ops import lcu_combine_diag
-from qkan_implementation_tpu.sim import unitary
-from qkan_implementation_tpu.utils.profiling import StageTimer
+from qkan_implementation.encoding import fable
+from qkan_implementation.ops import lcu_combine_diag
+from qkan_implementation.sim import unitary
+from qkan_implementation.utils.profiling import StageTimer
 
 
 @pytest.mark.parametrize(

@@ -7,12 +7,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from qkan_implementation_tpu.experiments.degree_viz import (
+from qkan_implementation.experiments.degree_viz import (
     TEST_FUNCTIONS,
     plot_degree_optimization,
     run_interactive_test,
 )
-from qkan_implementation_tpu.experiments.mnist import (
+from qkan_implementation.experiments.mnist import (
     run_mnist_experiment,
     run_mnist_n_times,
 )
@@ -45,8 +45,8 @@ def test_mnist_experiment_end_to_end(tmp_path):
     assert saved["metrics"]["test_accuracy"] == m["test_accuracy"]
 
     # saved model round-trips and reproduces accuracy
-    from qkan_implementation_tpu.models import FixedKAN
-    from qkan_implementation_tpu.data.mnist import load_mnist
+    from qkan_implementation.models import FixedKAN
+    from qkan_implementation.data.mnist import load_mnist
 
     loaded = FixedKAN.load_model(results["model_file"])
     x_test, y_test, _ = load_mnist(train=False)
@@ -153,7 +153,7 @@ def test_load_mnist_idx_branch(tmp_path):
     r3 weak #5: these branches never ran in the suite)."""
     import gzip
 
-    from qkan_implementation_tpu.data.mnist import load_mnist
+    from qkan_implementation.data.mnist import load_mnist
 
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, (4, 28, 28)).astype(np.uint8)
@@ -190,7 +190,7 @@ def test_load_mnist_idx_branch(tmp_path):
 
 def test_load_mnist_npz_branch(tmp_path):
     """Keras-style mnist.npz resolves when no idx files exist."""
-    from qkan_implementation_tpu.data.mnist import load_mnist
+    from qkan_implementation.data.mnist import load_mnist
 
     rng = np.random.default_rng(1)
     xtr = rng.integers(0, 256, (5, 28, 28)).astype(np.uint8)
@@ -213,7 +213,7 @@ def test_load_mnist_npz_branch(tmp_path):
 def test_bilinear_upsample_exact_cases():
     """_bilinear_upsample is align-corners bilinear: constant images stay
     constant, and a linear ramp upsamples to the exact linear ramp."""
-    from qkan_implementation_tpu.data.mnist import _bilinear_upsample
+    from qkan_implementation.data.mnist import _bilinear_upsample
 
     const = np.full((1, 8, 8), 0.625)
     np.testing.assert_allclose(_bilinear_upsample(const, 28), 0.625)
@@ -227,10 +227,10 @@ def test_improved_degree_viz_multi_feature():
     fits (review r3: it passed the full [N, F] matrix to scatter/plot,
     crashing exactly the case its docstring claimed to handle; panels
     plot against feature 0 like the sibling function)."""
-    from qkan_implementation_tpu.experiments.degree_viz import (
+    from qkan_implementation.experiments.degree_viz import (
         plot_degree_optimization_improved,
     )
-    from qkan_implementation_tpu.optim.degree_optimizer import (
+    from qkan_implementation.optim.degree_optimizer import (
         DegreeOptimizer,
     )
 

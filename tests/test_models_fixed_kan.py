@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.models import FixedKAN, FixedKANConfig, kan_apply
+from qkan_implementation.models import FixedKAN, FixedKANConfig, kan_apply
 
 
 def quadratic_data(n=100, seed=0):
@@ -290,7 +290,7 @@ def test_gram_scoring_finite_and_matches_svd_at_f32(monkeypatch):
     # comparison is loose because the f32 ridge floor (1e-4, plus one
     # refinement step) biases the smallest residuals relative to min-norm
     # SVD -- ordering is what degree selection consumes.
-    from qkan_implementation_tpu.data.mnist import load_mnist, to_one_hot
+    from qkan_implementation.data.mnist import load_mnist, to_one_hot
 
     fallbacks = []
     orig = FixedKAN._svd_fallback
@@ -328,7 +328,7 @@ def test_fanin_lr_scaling_stabilizes_deep_training():
     # Adam on a wide layer drifts its output by ~lr*fan_in per epoch,
     # saturating the next tanh; lr_scale='fanin' must keep deep training
     # from degrading the structure-optimized accuracy.
-    from qkan_implementation_tpu.data.mnist import load_digits_784, to_one_hot
+    from qkan_implementation.data.mnist import load_digits_784, to_one_hot
 
     x, y, _ = load_digits_784(train=True, augment_to=800, seed=0)
     xt, yt, _ = load_digits_784(train=False)
@@ -517,7 +517,7 @@ def test_compute_dtype_int8x2_residual_serving():
     the config sentinel must round-trip the model plumbing, and training
     must reject it (rounding has zero gradient)."""
     import pytest as _pytest
-    from qkan_implementation_tpu.models.fixed_kan import kan_layer_apply
+    from qkan_implementation.models.fixed_kan import kan_layer_apply
 
     rng = np.random.default_rng(7)
     in_dim, out, T, D = 256, 8, 4, 3  # fan-in 1024 >= policy threshold
@@ -576,11 +576,12 @@ def test_compute_dtype_int8x2_residual_serving():
                  compute_dtype="int8x2")
 
 
-def test_matmul_precision_bf16x2_variants():
-    """matmul_precision='bf16x2_w'/'bf16x2_x' (manual two-pass bf16):
-    error must sit strictly between one bf16 pass and f32, with the
-    residual-split side's rounding eliminated."""
-    from qkan_implementation_tpu.models.fixed_kan import kan_layer_apply
+def test_forward_precision_names_agree_on_cpu():
+    """Every precision the policy can pick -- the device default, three
+    bf16 passes (BF16_BF16_F32_X3) and full f32 -- runs through the layer;
+    the CPU multiplies in f32 under each, so they agree to f32 rounding.
+    A name JAX does not know raises instead of passing silently."""
+    from qkan_implementation.models.fixed_kan import kan_layer_apply
 
     rng = np.random.default_rng(11)
     in_dim, out, T, D = 256, 8, 4, 3
@@ -594,19 +595,14 @@ def test_matmul_precision_bf16x2_variants():
         ),
     }
     x = jnp.asarray(rng.uniform(-1, 1, (64, in_dim)), dtype=jnp.float32)
-    ref = np.asarray(
-        kan_layer_apply(lp, x, D, matmul_precision="highest"),
-        dtype=np.float64,
-    )
-    scale = np.linalg.norm(ref)
-    one_pass = np.asarray(
-        kan_layer_apply(lp, x, D, compute_dtype=jnp.bfloat16)
-    )
-    rel1 = np.linalg.norm(one_pass - ref) / scale
-    for prec in ("bf16x2_w", "bf16x2_x"):
+    ref = np.asarray(kan_layer_apply(lp, x, D, matmul_precision="highest"))
+    for prec in (None, "BF16_BF16_F32_X3", "auto"):
         got = np.asarray(kan_layer_apply(lp, x, D, matmul_precision=prec))
-        rel = np.linalg.norm(got - ref) / scale
-        assert 0.0 < rel < rel1, (prec, rel, rel1)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    import pytest as _pytest
+
+    with _pytest.raises(ValueError):
+        kan_layer_apply(lp, x, D, matmul_precision="bf16x2_w")
 
 
 def test_collapsed_layer_matches_naive_oidt_einsum():
@@ -614,8 +610,8 @@ def test_collapsed_layer_matches_naive_oidt_einsum():
     contraction sum_o hw_o * (basis[:, :, <=d_o] . C_o) exactly (same
     floating-point class of operation, tolerance only for reassociation).
     Degrees are deliberately ragged so the mask path is exercised."""
-    from qkan_implementation_tpu.models.fixed_kan import kan_layer_apply
-    from qkan_implementation_tpu.ops.chebyshev import chebyshev_basis
+    from qkan_implementation.models.fixed_kan import kan_layer_apply
+    from qkan_implementation.ops.chebyshev import chebyshev_basis
 
     rng = np.random.default_rng(11)
     B, in_dim, out, T, D = 17, 5, 4, 3, 6
@@ -643,9 +639,10 @@ def test_collapsed_layer_matches_naive_oidt_einsum():
 
 
 def test_train_fused_backend_bf16_converges():
-    """train(backend='fused', compute_dtype='bfloat16'): the Pallas
-    training recipe must converge like the exact path (the 11x train-step
-    kernel, ops/fused_layer.py) and reject int8."""
+    """train(backend='fused') runs the fused kernel's custom VJP (interpret
+    mode here) and must converge like the exact path; the kernel computes
+    in f32 only, so compute_dtype='bfloat16' on it raises, as int8 does on
+    every backend."""
     x, y = quadratic_data(n=200)
     x = jnp.asarray(np.asarray(x, dtype=np.float32))
     y = jnp.asarray(np.asarray(y, dtype=np.float32))
@@ -660,7 +657,7 @@ def test_train_fused_backend_bf16_converges():
     assert worse > before
     losses = kan.train(
         x, y, epochs=30, learning_rate=5e-3, batch_size=50, loss="mse",
-        backend="fused", compute_dtype=jnp.bfloat16,
+        backend="fused",
     )
     assert np.isfinite(np.asarray(losses)).all()
     after = float(jnp.mean((kan(x) - y) ** 2))
@@ -668,6 +665,9 @@ def test_train_fused_backend_bf16_converges():
 
     import pytest as _pytest
 
+    with _pytest.raises(ValueError, match="f32 only"):
+        kan.train(x, y, epochs=1, loss="mse", backend="fused",
+                  compute_dtype=jnp.bfloat16)
     with _pytest.raises(ValueError, match="int8"):
         kan.train(x, y, epochs=1, loss="mse", compute_dtype=jnp.int8)
 
@@ -703,10 +703,9 @@ def test_train_lr_schedule_cosine():
 def test_train_matmul_precision_knob():
     """matmul_precision='high'/'highest' must reproduce the default
     trajectory exactly on CPU (true-f32 multiplies either way -- the knob
-    only changes TPU MXU pass counts) and reject unknown enum names.  The
-    knob exists because on-chip flagship cells measured the TPU f32
-    default (ONE bf16 pass) costing ~5 accuracy points of training
-    convergence vs the same recipe on CPU (docs/benchmarks.md r4)."""
+    only changes how the GPU's tensor cores multiply) and reject unknown
+    names.  The knob exists because the device's f32 default can cost
+    accuracy at wide fan-in (benchmarks/eval_precision_probe.py)."""
     x, y = quadratic_data(n=200)
 
     def run(**kw):
@@ -769,11 +768,6 @@ def test_train_data_parallel_matches_single_device():
     kan.optimize(x, y, solver="exact")
     with _pytest.raises(ValueError, match="divisible"):
         kan.train(x, y, epochs=1, batch_size=63, loss="mse", mesh=mesh)
-    with _pytest.raises(ValueError, match="shard_map"):
-        kan.train(
-            x, y, epochs=1, batch_size=64, loss="mse", mesh=mesh,
-            backend="fused",
-        )
 
 
 def test_train_tensor_parallel_matches_single_device():
@@ -826,8 +820,8 @@ def test_train_fused_f32_tracks_xla_trajectory():
     """backend='fused' at f32 is the same math as 'xla' (reassociation
     only), so a full multi-epoch Adam trajectory from identical inits must
     produce near-identical per-epoch losses AND near-identical final
-    params on a wide layer (in=64 exercises the real tiled kernel path in
-    interpret mode).  A VJP bug that still 'converges' (e.g. a scaled or
+    params on a wide layer (in=64 spans two of the kernel's column chunks,
+    in interpret mode).  A VJP bug that still 'converges' (e.g. a scaled or
     transposed cotangent) diverges the trajectories immediately."""
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.uniform(-2, 2, (256, 64)).astype(np.float32))
@@ -935,10 +929,11 @@ def test_qr_sweep_matches_svd_and_routes_big_f32_layers(monkeypatch):
 
 
 def test_qr_sweep_degrades_to_svd_on_backend_failure(monkeypatch):
-    """Remote-TPU compiles fail transiently; a QR lowering failure must
-    degrade to the exact SVD sweep with a warning, not kill optimize()."""
-    import warnings
-    from qkan_implementation_tpu.models import fixed_kan as fk
+    """A QR compile or runtime failure surfaces as the error it is: the
+    structure search no longer swaps in the SVD sweep silently, which on
+    the card would turn a compile failure into a quality regression."""
+    import pytest as _pytest
+    from qkan_implementation.models import fixed_kan as fk
 
     def broken_kernels(dp1, in_dim, ridge):
         def qr_fn(basis, y):
@@ -952,11 +947,8 @@ def test_qr_sweep_degrades_to_svd_on_backend_failure(monkeypatch):
     y = jnp.asarray(np.sin(np.asarray(x).sum(1, keepdims=True)))
     cfg = FixedKANConfig(network_shape=[3, 1], max_degree=3,
                          lstsq_method="qr")
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        s, c = FixedKAN(cfg)._evaluate_layer_degrees(jnp.tanh(x), y)
-    assert any("QR sweep unavailable" in str(x.message) for x in w)
-    assert np.all(np.isfinite(s)) and len(c) == 4
+    with _pytest.raises(RuntimeError, match="backend init failed"):
+        FixedKAN(cfg)._evaluate_layer_degrees(jnp.tanh(x), y)
 
 
 def test_optimize_data_parallel_matches_single_device():
@@ -1121,21 +1113,26 @@ def test_train_presets_bundle():
 
 
 def test_forward_matmul_precision_policy():
-    """The 'auto' forward policy pins 'high' at fan-in >= 512 and leaves
-    narrow layers on the device default; on CPU every choice is the same
-    true-f32 math (the knob only changes TPU MXU pass counts).  Exists
-    because one bf16 pass cost 5.6 test-accuracy points of pure EVAL error
-    at the flagship shape (r4 eval_precision_probe)."""
-    from qkan_implementation_tpu.models.fixed_kan import (
+    """The 'auto' forward policy pins three bf16 passes (BF16_BF16_F32_X3)
+    at fan-in >= 512 and leaves narrow layers on the device default; on the
+    CPU every choice is the same true-f32 math.  On the GPU the default is
+    TF32, which cost up to three test images at the flagship fan-in where
+    BF16_BF16_F32_X3 matched full f32 (benchmarks/eval_precision_probe.py)."""
+    from qkan_implementation.models.fixed_kan import (
         _FORWARD_PRECISION_MIN_FANIN,
         _resolve_forward_precision,
         kan_layer_apply,
     )
 
-    assert _resolve_forward_precision("auto", 511) is None
-    assert _resolve_forward_precision("auto", 512) == "high"
-    assert _resolve_forward_precision(None, 10_000) is None  # explicit opt-out
-    assert _resolve_forward_precision("highest", 4) == "highest"
+    assert _FORWARD_PRECISION_MIN_FANIN == 512
+    f32 = jnp.float32
+    assert _resolve_forward_precision("auto", 511, f32) is None
+    assert _resolve_forward_precision("auto", 512, f32) == "BF16_BF16_F32_X3"
+    # f64 layers keep the device default: three bf16 passes would cut them
+    # to about f32 accuracy
+    assert _resolve_forward_precision("auto", 512, jnp.float64) is None
+    assert _resolve_forward_precision(None, 10_000, f32) is None  # opt-out
+    assert _resolve_forward_precision("highest", 4, f32) == "highest"
 
     rng = np.random.default_rng(3)
     D = 5
@@ -1168,7 +1165,7 @@ def test_int8_wide_fanin_warns():
     trace time, not discover it in production metrics."""
     import warnings
 
-    from qkan_implementation_tpu.models.fixed_kan import kan_layer_apply
+    from qkan_implementation.models.fixed_kan import kan_layer_apply
 
     rng = np.random.default_rng(0)
     D = 5
@@ -1196,18 +1193,12 @@ def test_int8_wide_fanin_warns():
 
 
 def test_train_precision_routing_per_backend():
-    """Per-backend training-precision resolution (r5 review fix): the
-    fused backends own their numerics in-kernel, so no ambient
-    default_matmul_precision context may wrap their trace (today's Mosaic
-    rejects precision hints on in-kernel dots), and last_matmul_precision
-    must record what each kernel actually ran:
+    """train() resolves 'auto' to the device default (TF32 on the GPU:
+    the probe measured it within two test images of full f32 on every
+    seed), enters an explicit precision as the ambient context for the
+    whole step on every backend, and records the choice."""
+    import qkan_implementation.models.fixed_kan as fk
 
-    - fused_dw 'auto' -> 'high' (NOT the convergence-stalling device
-      default the pre-fix ambient-context routing silently produced)
-    - fused_dw + compute_dtype=bfloat16 -> 'bf16' (the one-pass class)
-    - fused_dw + xla-only names ('highest') -> kernel ceiling 'high'
-    - fused (v1) -> 'high' unconditionally (kernel-controlled bf16x3)
-    """
     x, y = quadratic_data(n=120)
     x = jnp.asarray(np.asarray(x, dtype=np.float32))
     y = jnp.asarray(np.asarray(y, dtype=np.float32))
@@ -1224,17 +1215,77 @@ def test_train_precision_routing_per_backend():
         assert np.isfinite(np.asarray(losses)).all()
         return kan
 
-    assert trained(backend="xla").last_matmul_precision == "high"
+    assert fk._TRAIN_PRECISION is None
+    assert trained(backend="xla").last_matmul_precision is None
+    assert trained(backend="fused").last_matmul_precision is None
     assert trained(
-        backend="fused_dw"
-    ).last_matmul_precision == "high"
-    assert trained(
-        backend="fused_dw", compute_dtype=jnp.bfloat16
-    ).last_matmul_precision == "bf16"
-    assert trained(
-        backend="fused_dw", matmul_precision="highest"
-    ).last_matmul_precision == "high"
-    assert trained(
-        backend="fused_dw", matmul_precision=None
-    ).last_matmul_precision is None
-    assert trained(backend="fused").last_matmul_precision == "high"
+        backend="xla", matmul_precision="highest"
+    ).last_matmul_precision == "highest"
+    # the explicit precision is the ambient one while the step is traced
+    seen = []
+    real = fk.kan_layer_apply
+
+    def spy(*a, **k):
+        seen.append(jax.config.jax_default_matmul_precision)
+        return real(*a, **k)
+
+    kan = FixedKAN(FixedKANConfig(network_shape=[1, 4, 1], max_degree=3))
+    kan.optimize(x, y, solver="exact")
+    fk.kan_layer_apply = spy
+    try:
+        kan.train(x, y, epochs=1, batch_size=60, loss="mse",
+                  backend="xla", matmul_precision="highest")
+    finally:
+        fk.kan_layer_apply = real
+    assert seen and set(seen) == {"highest"}
+
+
+@pytest.mark.parametrize("rows,in_dim,zero_cols", [(600, 64, 5), (300, 16, 3), (600, 8, 0)])
+def test_svd_sweep_finite_and_min_norm_on_rank_deficient_basis(rows, in_dim, zero_cols):
+    """The 'svd' structure search on a rank-deficient design (the in_dim
+    identical T_0 columns, plus constant-zero pixel columns) returns
+    finite coefficients equal to NumPy's min-norm lstsq for every degree.
+    The [600, 64] all-ones degree-0 block made LAPACK's SVD return NaN
+    singular vectors, which turned the whole digits model into NaN."""
+    from qkan_implementation.ops.chebyshev import chebyshev_basis
+
+    rng = np.random.default_rng(rows + in_dim)
+    x = rng.uniform(0, 1, (rows, in_dim))
+    x[:, :zero_cols] = 0.0
+    y = np.eye(10)[rng.integers(0, 10, rows)]
+    D = 3
+    kan = FixedKAN(FixedKANConfig(network_shape=[in_dim, 4, 10], max_degree=D))
+    basis = chebyshev_basis(jnp.tanh(jnp.asarray(x)), D, clip=False)
+    scores, coeffs = kan._svd_fallback(basis, jnp.asarray(y))
+    assert np.all(np.isfinite(scores))
+    b = np.asarray(basis)
+    for d in range(D + 1):
+        X_d = b[:, :, : d + 1].reshape(rows, -1)  # dim-major, as the forward
+        want = np.linalg.lstsq(X_d, y, rcond=None)[0]
+        got = np.asarray(coeffs[d])
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, atol=1e-8)
+        np.testing.assert_allclose(
+            scores[d], np.mean((y - X_d @ want) ** 2), rtol=1e-9, atol=1e-12
+        )
+
+
+def test_svd_structure_search_on_digits_is_finite():
+    """The failing case itself: the 8x8 digits data through optimize()."""
+    from qkan_implementation.data.mnist import (
+        load_mnist,
+        sample_train_subset,
+        to_one_hot,
+    )
+
+    x, y, _ = load_mnist(train=True)
+    xt, yl = sample_train_subset(x, y, 600, seed=0)
+    kan = FixedKAN(FixedKANConfig(
+        network_shape=[64, 8, 10], max_degree=3, complexity_weight=0.001,
+        degree_objective="penalized_mse", consistent_tanh=True,
+    ))
+    kan.optimize(jnp.asarray(xt), jnp.asarray(to_one_hot(yl, 10)), solver="exact")
+    for lp in kan.params:
+        assert np.all(np.isfinite(np.asarray(lp["coefficients"])))
+    acc = float((np.asarray(kan(jnp.asarray(xt))).argmax(1) == yl).mean())
+    assert acc > 0.8

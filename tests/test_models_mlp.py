@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.models import MLPConfig, mlp_apply, mlp_predict, train_mlp
-from qkan_implementation_tpu.models.mlp import init_mlp
+from qkan_implementation.models import MLPConfig, mlp_apply, mlp_predict, train_mlp
+from qkan_implementation.models.mlp import init_mlp
 
 
 def make_data(n=256, seed=0):

@@ -4,8 +4,8 @@ agreement with the on-device JAX annealer."""
 import numpy as np
 import pytest
 
-from qkan_implementation_tpu.anneal import QuboModel, degree_selection_qubo, solve_qubo
-from qkan_implementation_tpu import native_bindings as nb
+from qkan_implementation.anneal import QuboModel, degree_selection_qubo, solve_qubo
+from qkan_implementation import native_bindings as nb
 
 pytestmark = pytest.mark.skipif(
     not nb.native_available(), reason="no C++ toolchain"
@@ -75,7 +75,7 @@ def test_native_reproducible():
 
 
 def test_circuit_optimizer_cancels_and_merges():
-    from qkan_implementation_tpu.sim import Circuit, unitary
+    from qkan_implementation.sim import Circuit, unitary
 
     circ = Circuit(3)
     circ.h(0).h(0)              # cancels
@@ -100,7 +100,7 @@ def test_circuit_optimizer_cancels_and_merges():
 
 
 def test_circuit_optimizer_respects_blockers():
-    from qkan_implementation_tpu.sim import Circuit, unitary
+    from qkan_implementation.sim import Circuit, unitary
 
     circ = Circuit(2)
     circ.h(0).x(0).h(0)  # x(0) blocks the h-h cancellation
@@ -112,7 +112,7 @@ def test_circuit_optimizer_respects_blockers():
 
 
 def test_circuit_optimizer_opaque_barrier():
-    from qkan_implementation_tpu.sim import Circuit, unitary
+    from qkan_implementation.sim import Circuit, unitary
 
     circ = Circuit(3)
     circ.h(2)
@@ -126,8 +126,8 @@ def test_circuit_optimizer_opaque_barrier():
 
 
 def test_optimizer_on_fable_elementary_circuit():
-    from qkan_implementation_tpu.encoding import fable
-    from qkan_implementation_tpu.sim import unitary
+    from qkan_implementation.encoding import fable
+    from qkan_implementation.sim import unitary
 
     rng = np.random.default_rng(5)
     a = rng.uniform(-1, 1, (4, 4))
@@ -151,11 +151,11 @@ def test_optimizer_on_fable_elementary_circuit():
 
 
 def test_circuit_depth_native_matches_python():
-    from qkan_implementation_tpu.native_bindings import (
+    from qkan_implementation.native_bindings import (
         circuit_depth_native,
         native_available,
     )
-    from qkan_implementation_tpu.sim import Circuit
+    from qkan_implementation.sim import Circuit
 
     if not native_available():
         pytest.skip("native library unavailable")
@@ -190,8 +190,8 @@ def test_native_statevector_matches_jax_all_gates():
     MSB-first, little-endian qubit weights."""
     import jax
 
-    from qkan_implementation_tpu.sim import simulate
-    from qkan_implementation_tpu.sim.circuit import Circuit
+    from qkan_implementation.sim import simulate
+    from qkan_implementation.sim.circuit import Circuit
 
     rng = np.random.default_rng(0)
     q = 8
@@ -221,8 +221,8 @@ def test_native_statevector_fable_and_reuse():
     custom psi0."""
     import jax
 
-    from qkan_implementation_tpu.encoding import fable
-    from qkan_implementation_tpu.sim import simulate
+    from qkan_implementation.encoding import fable
+    from qkan_implementation.sim import simulate
 
     rng = np.random.default_rng(3)
     a = rng.uniform(-1, 1, (8, 8))
@@ -244,7 +244,7 @@ def test_native_statevector_fable_and_reuse():
 
 
 def test_native_statevector_rejects_unitary_gate():
-    from qkan_implementation_tpu.sim.circuit import Circuit
+    from qkan_implementation.sim.circuit import Circuit
 
     c = Circuit(2)
     c.unitary(np.eye(4), (1, 0))
@@ -257,7 +257,7 @@ def test_native_single_sweep_and_beta_validation():
     non-positive beta endpoint must raise instead of silently producing
     NaN-schedule quench samples (review r3)."""
     import pytest
-    from qkan_implementation_tpu.native_bindings import anneal_native
+    from qkan_implementation.native_bindings import anneal_native
 
     rng = np.random.default_rng(0)
     n = 10

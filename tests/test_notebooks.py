@@ -31,7 +31,7 @@ def test_notebooks_exist():
 def test_notebook_executes(path):
     # the kernel is a fresh subprocess: it sees os.environ, not this
     # process's jax config, so pin CPU the env-var way
-    os.environ["QKAN_PLATFORM"] = "cpu"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     nb = nbformat.read(path, as_version=4)
     client = NotebookClient(
         nb, timeout=600, kernel_name="python3",

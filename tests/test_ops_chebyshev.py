@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.ops import (
+from qkan_implementation.ops import (
     chebyshev_t,
     chebyshev_basis,
     cumulative_transform,

@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.ops import (
+from qkan_implementation.ops import (
     qkan_layer_forward,
     qkan_layer_forward_batched,
     qkan_layer_forward_batched_int8,
@@ -181,7 +181,7 @@ def test_degree_sweep_stability():
 
 
 def test_batched_forward_int8_serving_path():
-    """The int8 MXU serving path (static 127 activation scale, per-output-
+    """The int8 serving path (static 127 activation scale, per-output-
     channel weight scale, int32 accumulate): f32 output within the declared
     ~1e-3 absolute error of the exact path at the headline shape, and the
     quantization is deterministic."""
@@ -224,7 +224,7 @@ def test_batched_forward_int8_f32_output_under_x64():
     """Regression (review r3): with x64 enabled, f64 inputs/weights made the
     dequant scale f64, silently promoting the documented float32 output to
     float64.  The shared ``int8_quantized_matmul`` casts the scale."""
-    from qkan_implementation_tpu.ops.qkan_layer import int8_quantized_matmul
+    from qkan_implementation.ops.qkan_layer import int8_quantized_matmul
 
     N = K = 8
     d = 3

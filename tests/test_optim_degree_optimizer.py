@@ -10,7 +10,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from qkan_implementation_tpu.optim import BaseOptimizer, DegreeOptimizer
+from qkan_implementation.optim import BaseOptimizer, DegreeOptimizer
 
 
 def poly_frame(n=200, degree=3, seed=0, n_features=1):

@@ -16,9 +16,9 @@ import pytest
 from hypothesis import given, settings, strategies as st
 from jax.sharding import Mesh
 
-from qkan_implementation_tpu.models.fixed_kan import kan_apply
-from qkan_implementation_tpu.parallel.pp import kan_apply_pp
-from qkan_implementation_tpu.parallel.tp import kan_apply_tp
+from qkan_implementation.models.fixed_kan import kan_apply
+from qkan_implementation.parallel.pp import kan_apply_pp
+from qkan_implementation.parallel.tp import kan_apply_tp
 
 MAX_DEGREE = 3
 

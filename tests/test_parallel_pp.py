@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from qkan_implementation_tpu.models.fixed_kan import kan_apply
-from qkan_implementation_tpu.parallel.pp import (
+from qkan_implementation.models.fixed_kan import kan_apply
+from qkan_implementation.parallel.pp import (
     kan_apply_pp,
     make_pp_train_step,
     place_pipeline_params,

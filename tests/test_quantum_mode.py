@@ -8,14 +8,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.ops import qkan_layer_forward
-from qkan_implementation_tpu.ops.quantum import (
+from qkan_implementation.ops import qkan_layer_forward
+from qkan_implementation.ops.quantum import (
     fable_diag_traced,
     qkan_layer_forward_quantum,
     quantum_extract_diag,
     quantum_verify_pipeline,
 )
-from qkan_implementation_tpu.models.qsvt_neuron import (
+from qkan_implementation.models.qsvt_neuron import (
     QSVTNeuron,
     compare_classical_quantum,
 )
@@ -115,7 +115,7 @@ def test_qsvt_neuron_forward_requires_fit():
 
 
 def test_packed_extraction_matches_strict():
-    from qkan_implementation_tpu.ops.quantum import quantum_extract_diag_packed
+    from qkan_implementation.ops.quantum import quantum_extract_diag_packed
 
     rng = np.random.default_rng(6)
     diag = jnp.asarray(rng.uniform(-1, 1, 16))
@@ -131,10 +131,10 @@ def test_quantum_grad_training_n16_k16_fast():
     # 2^17-amplitude simulation per sample instead of 256 of them.
     import time
 
-    from qkan_implementation_tpu.ops.quantum import (
+    from qkan_implementation.ops.quantum import (
         qkan_layer_forward_quantum_batched,
     )
-    from qkan_implementation_tpu.ops.qkan_layer import qkan_layer_forward_batched
+    from qkan_implementation.ops.qkan_layer import qkan_layer_forward_batched
 
     rng = np.random.default_rng(7)
     N = K = 16
@@ -160,7 +160,7 @@ def test_quantum_grad_training_n16_k16_fast():
 
 
 def test_block_column_extraction_matches_matrix():
-    from qkan_implementation_tpu.ops.quantum import quantum_extract_block_columns
+    from qkan_implementation.ops.quantum import quantum_extract_block_columns
 
     rng = np.random.default_rng(8)
     a = rng.uniform(-1, 1, (6, 5))  # non-square, non-pow2 -> padded to 8x8
@@ -169,7 +169,7 @@ def test_block_column_extraction_matches_matrix():
 
 
 def test_fixed_kan_quantum_mode_capped():
-    from qkan_implementation_tpu.models.fixed_kan import FixedKAN, FixedKANConfig
+    from qkan_implementation.models.fixed_kan import FixedKAN, FixedKANConfig
 
     rng = np.random.default_rng(9)
     x = rng.uniform(-1, 1, (40, 2))
@@ -204,13 +204,13 @@ class TestShardedQuantumMode:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs the 8-device CPU mesh")
-        from qkan_implementation_tpu.parallel import make_mesh
+        from qkan_implementation.parallel import make_mesh
 
         return make_mesh(8, axis_name="d")
 
     def test_forward_matches_dense_quantum(self):
         import jax.numpy as jnp
-        from qkan_implementation_tpu.ops.quantum import (
+        from qkan_implementation.ops.quantum import (
             qkan_layer_forward_quantum,
             qkan_layer_forward_quantum_sharded,
         )
@@ -229,7 +229,7 @@ class TestShardedQuantumMode:
     def test_gradient_matches_dense_quantum(self):
         import jax
         import jax.numpy as jnp
-        from qkan_implementation_tpu.ops.quantum import (
+        from qkan_implementation.ops.quantum import (
             qkan_layer_forward_quantum,
             qkan_layer_forward_quantum_sharded,
         )
@@ -260,8 +260,8 @@ class TestShardedQuantumMode:
         # gate parameters, not silently ignore them
         import jax
         import jax.numpy as jnp
-        from qkan_implementation_tpu.sim import Circuit, simulate
-        from qkan_implementation_tpu.sim.sharded import sharded_simulate
+        from qkan_implementation.sim import Circuit, simulate
+        from qkan_implementation.sim.sharded import sharded_simulate
 
         mesh = self._mesh()
         q = 6
@@ -293,7 +293,7 @@ def test_quantum_grad_finite_f32_at_saturation():
     exactly 1.0 in f32, putting arccos at +/-1 where its derivative is
     -inf and every gradient NaN; the margin is now dtype-aware
     (ops/quantum.py fable_diag_traced)."""
-    from qkan_implementation_tpu.ops.quantum import quantum_extract_diag_packed
+    from qkan_implementation.ops.quantum import quantum_extract_diag_packed
 
     diag = jnp.asarray([1.5, 0.3, -0.2, 0.7], dtype=jnp.float32)
 
@@ -313,7 +313,7 @@ def test_extract_block_columns_integer_input():
     output buffer inherited a.dtype and silently truncated every
     recovered amplitude to 0)."""
     import numpy as np
-    from qkan_implementation_tpu.ops.quantum import (
+    from qkan_implementation.ops.quantum import (
         quantum_extract_block_columns,
     )
 
@@ -326,13 +326,13 @@ def test_extract_block_columns_integer_input():
 def test_sharded_packed_extraction_reuses_executor_cache():
     """Repeat eager calls must hit the compiled-executor cache (review
     r3: a fresh Circuit per call carried a fresh cache, re-tracing and
-    re-compiling the shard_map executor every time -- the minutes-scale
-    remote-compile cost the cache exists to remove)."""
+    re-compiling the shard_map executor every time -- the compile cost
+    the cache exists to remove)."""
     import numpy as np
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from qkan_implementation_tpu.ops.quantum import (
+    from qkan_implementation.ops.quantum import (
         _diag_circuit_template,
         quantum_extract_diag_packed_sharded,
     )

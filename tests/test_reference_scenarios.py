@@ -1,5 +1,5 @@
 """Remaining reference test scenarios (fixed_kan_tests.py,
-Tests_TorchDegreeOptimizer.py) ported to the TPU build."""
+Tests_TorchDegreeOptimizer.py) ported to the JAX build."""
 
 import numpy as np
 import pandas as pd
@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.anneal import degree_selection_qubo
-from qkan_implementation_tpu.anneal.sa import simulated_annealing_sharded
-from qkan_implementation_tpu.models import FixedKAN, FixedKANConfig
-from qkan_implementation_tpu.optim import DegreeOptimizer
-from qkan_implementation_tpu.parallel import make_mesh
+from qkan_implementation.anneal import degree_selection_qubo
+from qkan_implementation.anneal.sa import simulated_annealing_sharded
+from qkan_implementation.models import FixedKAN, FixedKANConfig
+from qkan_implementation.optim import DegreeOptimizer
+from qkan_implementation.parallel import make_mesh
 
 
 def _working_config(shape, max_degree, cw=0.001):
@@ -150,7 +150,7 @@ def test_visualize_analysis_1d(tmp_path):
 
 
 def test_run_records_jsonl(tmp_path):
-    from qkan_implementation_tpu.utils.run_records import RunRecorder
+    from qkan_implementation.utils.run_records import RunRecorder
 
     rec = RunRecorder(str(tmp_path / "runs.jsonl"))
     rec.record(experiment="e1", mse=np.float64(0.5), arr=np.array([1, 2]))

@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qkan_implementation_tpu.models import FixedKAN, FixedKANConfig
-from qkan_implementation_tpu.serving import BatchedPredictor, serve
+from qkan_implementation.models import FixedKAN, FixedKANConfig
+from qkan_implementation.serving import BatchedPredictor, serve
 
 
 @pytest.fixture(scope="module")

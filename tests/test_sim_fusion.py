@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable
-from qkan_implementation_tpu.sim import Circuit, simulate, unitary
-from qkan_implementation_tpu.sim.fusion import (
+from qkan_implementation.encoding import fable
+from qkan_implementation.sim import Circuit, simulate, unitary
+from qkan_implementation.sim.fusion import (
     BitPermutation,
     HRegister,
     fuse_register_ops,
@@ -86,8 +86,8 @@ def test_noncontiguous_h_register_segments():
 
 
 def test_runtime_fable_executor_matches_circuit():
-    from qkan_implementation_tpu.encoding.fable import fable_runtime_params
-    from qkan_implementation_tpu.sim.fusion import simulate_fable_runtime
+    from qkan_implementation.encoding.fable import fable_runtime_params
+    from qkan_implementation.sim.fusion import simulate_fable_runtime
 
     rng = np.random.default_rng(9)
     a = rng.uniform(-1, 1, (8, 8))
@@ -105,8 +105,8 @@ def test_runtime_fable_executor_matches_circuit():
 
 
 def test_runtime_fable_executor_differentiable():
-    from qkan_implementation_tpu.encoding.fable import fable_runtime_params
-    from qkan_implementation_tpu.sim.fusion import simulate_fable_runtime
+    from qkan_implementation.encoding.fable import fable_runtime_params
+    from qkan_implementation.sim.fusion import simulate_fable_runtime
 
     rng = np.random.default_rng(11)
     a = np.diag(rng.uniform(-0.9, 0.9, 8))

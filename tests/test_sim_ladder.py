@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.encoding import fable
-from qkan_implementation_tpu.sim import Circuit, simulate
-from qkan_implementation_tpu.sim.ladder import (
+from qkan_implementation.encoding import fable
+from qkan_implementation.sim import Circuit, simulate
+from qkan_implementation.sim.ladder import (
     LadderSegment,
     apply_ladder,
     fuse_ladders,
@@ -87,8 +87,8 @@ def test_simulate_auto_scan_fuses_long_ladders(monkeypatch):
     # The fusion pass is SPIED inside simulate() itself: re-running
     # fuse_ladders standalone would stay green even if the auto branch
     # dropped the call (correct amplitudes, superlinear compile regression).
-    import qkan_implementation_tpu.sim.ladder as ladder_mod
-    from qkan_implementation_tpu.sim.statevector import AUTO_LADDER_MIN
+    import qkan_implementation.sim.ladder as ladder_mod
+    from qkan_implementation.sim.statevector import AUTO_LADDER_MIN
 
     fused_inside = []
     orig = ladder_mod.fuse_ladders

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.sim import (
+from qkan_implementation.sim import (
     Circuit,
     expectation_diagonal,
     marginal_probabilities,

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from qkan_implementation_tpu.sim import Circuit, simulate, unitary, zero_state
-from qkan_implementation_tpu.sim.circuit import ry_matrix
+from qkan_implementation.sim import Circuit, simulate, unitary, zero_state
+from qkan_implementation.sim.circuit import ry_matrix
 
 
 def kron_embed(u, qubits, num_qubits):
@@ -69,7 +69,7 @@ def test_two_qubit_gates_on_nonadjacent_qubits():
     for qubits in [(0, 2), (3, 1), (2, 3), (1, 0)]:
         theta = rng.uniform(0, np.pi)
         circ = Circuit(q).cry(theta, *qubits)
-        from qkan_implementation_tpu.sim.circuit import controlled
+        from qkan_implementation.sim.circuit import controlled
 
         expected = kron_embed(controlled(ry_matrix(theta)), qubits, q).real
         np.testing.assert_allclose(np.asarray(unitary(circ)), expected, atol=1e-12)
