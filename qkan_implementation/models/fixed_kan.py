@@ -324,15 +324,19 @@ def _kernel_mode(precision) -> str | None:
     return None
 
 
-def choose_layer_backend(fan_in: int, compute_dtype, precision) -> str:
+def choose_layer_backend(fan_in: int, compute_dtype, precision,
+                         dtype) -> str:
     """The layer backend for this input: 'fused' (``ops.fused_layer``) on
     a GPU for a wide f32 layer at a precision the kernel has, 'xla'
-    otherwise.  The fused kernel keeps the Chebyshev basis out of device
-    memory, which is what bounds a wide layer; a narrow layer's basis is
-    small and XLA's cuBLAS call is as fast (PERF.md, kernel decisions)."""
+    otherwise.  ``dtype`` is the layer's result dtype: the kernel computes
+    in f32, so an f64 layer stays on XLA.  The fused kernel keeps the
+    Chebyshev basis out of device memory, which is what bounds a wide
+    layer; a narrow layer's basis is small and XLA's cuBLAS call is as
+    fast (PERF.md, kernel decisions)."""
     if (
         jax.default_backend() == "gpu"
         and compute_dtype is None
+        and jnp.dtype(dtype) == jnp.float32
         and fan_in >= _FORWARD_PRECISION_MIN_FANIN
         and _kernel_mode(precision) is not None
     ):
@@ -369,8 +373,8 @@ def kan_layer_apply(
 
     ``backend``: 'auto' picks per layer (``choose_layer_backend``); 'xla'
     builds the basis and calls one matmul; 'fused' runs the GPU kernel of
-    ``ops.fused_layer`` (in interpret mode off the GPU), f32 only, at the
-    precision 'default' or 'BF16_BF16_F32_X3'.
+    ``ops.fused_layer`` (in interpret mode off the GPU) on f32 inputs and
+    weights only, at the precision 'default' or 'BF16_BF16_F32_X3'.
 
     ``matmul_precision`` governs the f32 layer matmul.  'auto' pins
     ``_WIDE_LAYER_PRECISION`` on layers whose fan-in in*(D+1) reaches
@@ -390,18 +394,20 @@ def kan_layer_apply(
     coeffs = layer_params["coefficients"]  # [out, in, D+1, T]
     hw = layer_params["horizontal_weights"]  # [out]
     fan_in = coeffs.shape[1] * (max_degree + 1)
-    prec = _resolve_forward_precision(
-        matmul_precision, fan_in, jnp.result_type(x, coeffs)
-    )
+    dtype = jnp.result_type(x, coeffs)
+    prec = _resolve_forward_precision(matmul_precision, fan_in, dtype)
     # the precision this layer's matmul runs at, ambient context included
     effective = prec if prec is not None else (
         jax.config.jax_default_matmul_precision
     )
     if backend == "auto":
-        backend = choose_layer_backend(fan_in, compute_dtype, effective)
+        backend = choose_layer_backend(fan_in, compute_dtype, effective, dtype)
     if backend == "fused":
-        if compute_dtype is not None:
-            raise ValueError("backend='fused' computes in f32 only")
+        if compute_dtype is not None or jnp.dtype(dtype) != jnp.float32:
+            raise ValueError(
+                f"backend='fused' computes in f32 only (layer dtype {dtype}, "
+                f"compute_dtype {compute_dtype})"
+            )
         from qkan_implementation.ops.fused_layer import kan_layer_fused
 
         # degree-major [dp1*in, T] fold for the kernel's layout
@@ -417,7 +423,7 @@ def kan_layer_apply(
             x, w_dm, max_degree + 1, mode,
             interpret=jax.default_backend() != "gpu",
         )
-        return out.astype(jnp.promote_types(x.dtype, coeffs.dtype))
+        return out
     t = jnp.tanh(x)
     basis = chebyshev_basis(t, max_degree, clip=False)  # [B, in, D+1]
     # basis carries no `o` axis, so sum_o(coeffs * mask * hw) collapses the

@@ -16,9 +16,12 @@ Math (``t = tanh(x)``, ``W`` degree-major ``[dp1, in, T]``)::
     dx[b, i]  = (1 - t^2) * sum_{d>=1} d * U_{d-1}(t) * (g @ W_d^T)[b, i]
 
 with ``T'_d = d * U_{d-1}`` (Chebyshev polynomials of the second kind).
-The ``dW`` grid is (input-column chunk, batch split); each program
-accumulates its split's partial in registers and the splits are summed
-afterwards, since GPU blocks run in no fixed order.
+The forward and ``dW`` are kernels; ``dx`` is plain ``jax.numpy``, which
+XLA drops where the input is data (the first layer of a model, the only
+layer wide enough to take this path in the flagship).  The ``dW`` grid is
+(input-column chunk, batch split); each program accumulates its split's
+partial in registers and the splits are summed afterwards, since GPU
+blocks run in no fixed order.
 
 ``precision`` is the dot's algorithm: ``'default'`` is TF32 on the tensor
 cores (what an f32 XLA dot gets by default on the GPU) and ``'bf16x3'`` is
@@ -80,14 +83,14 @@ def _tile(ref, r0, c0, nrows, ncols, rows, cols):
     ), mask
 
 
-def _fwd_kernel(x_ref, w_ref, o_ref, *, dp1, rows, cols, prec, apply_tanh):
+def _fwd_kernel(x_ref, w_ref, o_ref, *, dp1, rows, cols, prec):
     r0 = _idx(pl.program_id(0) * _TB)
     t_pad = o_ref.shape[1]
 
     def chunk(k, acc):
         c0 = pl.multiple_of(_idx(k * _BN), _BN)
         x, _ = _tile(x_ref, r0, c0, _TB, _BN, rows, cols)
-        t = jnp.tanh(x) if apply_tanh else x
+        t = jnp.tanh(x)
         prev, cur = jnp.ones_like(t), t
         for d in range(dp1):
             w = w_ref[d, pl.ds(c0, _BN), :]
@@ -106,30 +109,8 @@ def _fwd_kernel(x_ref, w_ref, o_ref, *, dp1, rows, cols, prec, apply_tanh):
     )
 
 
-def _dx_kernel(x_ref, w_ref, g_ref, dx_ref, *, dp1, rows, cols, prec,
-               apply_tanh):
-    r0 = _idx(pl.program_id(0) * _TB)
-    c0 = pl.multiple_of(_idx(pl.program_id(1) * _BN), _BN)
-    t_pad = g_ref.shape[1]
-    x, mask = _tile(x_ref, r0, c0, _TB, _BN, rows, cols)
-    g, _ = _tile(g_ref, r0, 0, _TB, t_pad, rows, t_pad)
-    t = jnp.tanh(x) if apply_tanh else x
-    u_prev, u_cur = jnp.zeros_like(t), jnp.ones_like(t)  # U_{-1}, U_0
-    dt = jnp.zeros_like(t)
-    for d in range(1, dp1):
-        w = w_ref[d, pl.ds(c0, _BN), :]
-        gw = pl.dot(g, w, trans_b=True, precision=prec)
-        dt += (float(d) * u_cur) * gw
-        u_prev, u_cur = u_cur, 2.0 * t * u_cur - u_prev
-    dx = (1.0 - t * t) * dt if apply_tanh else dt
-    plgpu.store(
-        dx_ref.at[pl.ds(r0, _TB), pl.ds(c0, _BN)], dx.astype(dx_ref.dtype),
-        mask=mask,
-    )
-
-
 def _dw_kernel(x_ref, g_ref, dw_ref, *, dp1, rows, cols, blocks_per_split,
-               prec, apply_tanh):
+               prec):
     c0 = pl.multiple_of(_idx(pl.program_id(0) * _BN), _BN)
     split = _idx(pl.program_id(1))
     t_pad = g_ref.shape[1]
@@ -138,7 +119,7 @@ def _dw_kernel(x_ref, g_ref, dw_ref, *, dp1, rows, cols, blocks_per_split,
         r0 = _idx((split * blocks_per_split + j) * _TB)
         x, _ = _tile(x_ref, r0, c0, _TB, _BN, rows, cols)
         g, _ = _tile(g_ref, r0, 0, _TB, t_pad, rows, t_pad)
-        t = jnp.tanh(x) if apply_tanh else x
+        t = jnp.tanh(x)
         # rows past the batch load g = 0, so they add nothing to dW
         prev, cur = jnp.ones_like(t), t
         dws = list(dws)
@@ -164,27 +145,26 @@ def _pad_weights(w: jax.Array, dp1: int, cols: int) -> jax.Array:
     )
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
+@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
 def kan_layer_fused(
     x: jax.Array, w: jax.Array, dp1: int, precision: str = "default",
-    apply_tanh: bool = True, interpret: bool = False,
+    interpret: bool = False,
 ) -> jax.Array:
     """Fused layer: ``[B, in]`` x degree-major ``[dp1*in, T]`` -> ``[B, T]``.
 
     ``w[d*in + i, t]`` multiplies ``T_d(tanh(x[:, i]))``.  Computes in f32
     and returns f32; differentiable in ``x`` and ``w``.
-    ``apply_tanh=False`` runs the recurrence on raw ``x``.
     """
-    return _fwd(x, w, dp1, precision, apply_tanh, interpret)[0]
+    return _fwd(x, w, dp1, precision, interpret)[0]
 
 
-def _fwd(x, w, dp1, precision, apply_tanh, interpret):
+def _fwd(x, w, dp1, precision, interpret):
     rows, cols = x.shape
     t_dim = w.shape[1]
     wp = _pad_weights(w, dp1, cols)
     kernel = partial(
         _fwd_kernel, dp1=dp1, rows=rows, cols=cols,
-        prec=_PRECISION[precision], apply_tanh=apply_tanh,
+        prec=_PRECISION[precision],
     )
     out = pl.pallas_call(
         kernel,
@@ -197,38 +177,34 @@ def _fwd(x, w, dp1, precision, apply_tanh, interpret):
     return out[:, :t_dim], (x, w)
 
 
-def _bwd(dp1, precision, apply_tanh, interpret, res, g):
-    # dx and dW are separate calls so that XLA drops the dx call where the
-    # input is data (the first layer of a model) and nothing reads dx
+def _bwd(dp1, precision, interpret, res, g):
     x, w = res
     rows, cols = x.shape
     t_dim = w.shape[1]
+    prec = _PRECISION[precision]
+    xf, gf = x.astype(jnp.float32), g.astype(jnp.float32)
+    w3 = w.reshape(dp1, cols, t_dim).astype(jnp.float32)
+    # dx: the U_{d-1} recurrence times g @ W_d^T, degree by degree
+    t = jnp.tanh(xf)
+    u_prev, u_cur = jnp.zeros_like(t), jnp.ones_like(t)  # U_{-1}, U_0
+    dt = jnp.zeros_like(t)
+    for d in range(1, dp1):
+        dt += (float(d) * u_cur) * lax.dot(gf, w3[d].T, precision=prec)
+        u_prev, u_cur = u_cur, 2.0 * t * u_cur - u_prev
+    dx = (1.0 - t * t) * dt
+    # dW: the kernel, from per-split partials
     wp = _pad_weights(w, dp1, cols)
-    gp = jnp.pad(g.astype(jnp.float32), ((0, 0), (0, wp.shape[2] - t_dim)))
-    xf = x.astype(jnp.float32)
-    chunks = wp.shape[1] // _BN
-    opts = dict(
-        dp1=dp1, rows=rows, cols=cols, prec=_PRECISION[precision],
-        apply_tanh=apply_tanh,
-    )
-    params = plgpu.CompilerParams(num_warps=_WARPS, num_stages=2)
-    dx = pl.pallas_call(
-        partial(_dx_kernel, **opts),
-        grid=(pl.cdiv(rows, _TB), chunks),
-        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.float32),
-        compiler_params=params,
-        interpret=interpret,
-        name="kan_layer_fused_xgrad",
-    )(xf, wp, gp)
+    gp = jnp.pad(gf, ((0, 0), (0, wp.shape[2] - t_dim)))
     blocks = pl.cdiv(rows, _TB)
     splits = min(_SPLITS, blocks)
     dw = pl.pallas_call(
         partial(
-            _dw_kernel, blocks_per_split=pl.cdiv(blocks, splits), **opts
+            _dw_kernel, dp1=dp1, rows=rows, cols=cols,
+            blocks_per_split=pl.cdiv(blocks, splits), prec=prec,
         ),
-        grid=(chunks, splits),
+        grid=(wp.shape[1] // _BN, splits),
         out_shape=jax.ShapeDtypeStruct((splits,) + wp.shape, jnp.float32),
-        compiler_params=params,
+        compiler_params=plgpu.CompilerParams(num_warps=_WARPS, num_stages=2),
         interpret=interpret,
         name="kan_layer_fused_wgrad",
     )(xf, gp)

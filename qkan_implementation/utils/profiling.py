@@ -10,10 +10,18 @@ annotation so stages show up on the device timeline.
 from __future__ import annotations
 
 import contextlib
+import gzip
+import json
 import time
+from collections import defaultdict
+from pathlib import Path
 from typing import Dict, Optional
 
 import jax
+
+#: Where ``device_kernel_times`` writes its traces by default: fixed,
+#: inside the checkout, git-ignored.
+REPO_TRACE_DIR = Path(__file__).resolve().parents[2] / "results" / "traces"
 
 
 class StageTimer:
@@ -94,3 +102,58 @@ def timeit_chained(fn, x, iters: int = 50, consts: tuple = ()) -> float:
     start = time.perf_counter()
     jax.block_until_ready(chain(x, *consts))
     return (time.perf_counter() - start) / iters
+
+
+def stream_kernel_times(trace: dict) -> Dict[str, float]:
+    """Total microseconds per kernel name on the GPU streams of a trace.
+
+    ``trace`` is a Chrome trace-event document as ``jax.profiler`` writes
+    it (``*.trace.json.gz``): a device is a process named ``/device:GPU:N``
+    and each CUDA stream a thread named ``Stream #K(...)``.  The device's
+    other lines (XLA ops, modules, steps) repeat the kernels' time and are
+    left out.
+    """
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    gpu_pids, streams = set(), set()
+    for e in events:
+        if e.get("ph") != "M":
+            continue
+        name = e.get("args", {}).get("name", "")
+        if e.get("name") == "process_name" and name.startswith("/device:GPU"):
+            gpu_pids.add(e["pid"])
+        elif e.get("name") == "thread_name" and name.startswith("Stream"):
+            streams.add((e["pid"], e["tid"]))
+    totals: Dict[str, float] = defaultdict(float)
+    for e in events:
+        if (
+            e.get("ph") == "X"
+            and e.get("pid") in gpu_pids
+            and (e["pid"], e.get("tid")) in streams
+        ):
+            totals[e["name"]] += float(e.get("dur", 0.0))
+    return dict(totals)
+
+
+def device_kernel_times(fn, *args, calls: int = 20,
+                        log_dir: Optional[str] = None) -> Dict[str, float]:
+    """Device milliseconds per call of each kernel ``fn(*args)`` runs.
+
+    Runs ``fn`` once to compile, then ``calls`` times under a
+    ``jax.profiler`` trace, and reduces the trace with
+    ``stream_kernel_times``.  Host dispatch is not counted, so a kernel of
+    a few microseconds is timed as itself.  Empty off the GPU.  The trace
+    goes to ``log_dir`` (default ``REPO_TRACE_DIR``).
+    """
+    log_dir = Path(log_dir or REPO_TRACE_DIR)
+    jax.block_until_ready(fn(*args))
+    with device_trace(str(log_dir)):
+        for _ in range(calls):
+            out = fn(*args)
+        jax.block_until_ready(out)
+    # the newest trace is this one (a run directory is named by the second,
+    # so a second trace within it overwrites the first)
+    path = max(log_dir.glob("plugins/profile/*/*.trace.json.gz"),
+               key=lambda p: p.stat().st_mtime)
+    with gzip.open(path, "rt") as f:
+        totals = stream_kernel_times(json.load(f))
+    return {k: v / calls / 1e3 for k, v in totals.items()}

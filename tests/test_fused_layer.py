@@ -21,23 +21,25 @@ from qkan_implementation.ops import fused_layer
 from qkan_implementation.ops.fused_layer import kan_layer_fused
 
 
-def random_layer(rng, in_dim, out, T, D, ragged=True):
+def random_layer(rng, in_dim, out, T, D, ragged=True, dtype=np.float32):
     degs = (
         rng.integers(0, D + 1, out) if ragged else np.full(out, D)
     ).astype(np.int32)
     return {
         "degrees": jnp.asarray(degs),
         "coefficients": jnp.asarray(
-            rng.normal(0, 0.3, (out, in_dim, D + 1, T)).astype(np.float64)
+            rng.normal(0, 0.3, (out, in_dim, D + 1, T)).astype(dtype)
         ),
-        "horizontal_weights": jnp.asarray(
-            rng.normal(0, 1, out).astype(np.float64)
-        ),
+        "horizontal_weights": jnp.asarray(rng.normal(0, 1, out).astype(dtype)),
     }
 
 
-def _degree_major_reference(x, w_dm, dp1, apply_tanh=True):
-    t = np.tanh(np.asarray(x)) if apply_tanh else np.asarray(x)
+def _uniform(rng, lo, hi, shape):
+    return jnp.asarray(rng.uniform(lo, hi, shape), jnp.float32)
+
+
+def _degree_major_reference(x, w_dm, dp1):
+    t = np.tanh(np.asarray(x, np.float64))
     ts = [np.ones_like(t), t]
     for _ in range(2, dp1):
         ts.append(2.0 * t * ts[-1] - ts[-2])
@@ -53,7 +55,7 @@ def _degree_major_reference(x, w_dm, dp1, apply_tanh=True):
 def test_fused_forward_matches_xla_backend(in_dim, out, T, D, batch):
     rng = np.random.default_rng(in_dim)
     lp = random_layer(rng, in_dim, out, T, D)
-    x = jnp.asarray(rng.uniform(-2, 2, (batch, in_dim)))
+    x = _uniform(rng, -2, 2, (batch, in_dim))
     want = np.asarray(kan_layer_apply(lp, x, D, backend="xla"))
     got = np.asarray(kan_layer_apply(lp, x, D, backend="fused"))
     assert got.shape == want.shape
@@ -62,12 +64,12 @@ def test_fused_forward_matches_xla_backend(in_dim, out, T, D, batch):
 
 @pytest.mark.parametrize("in_dim,out,T,D,batch", [(11, 5, 3, 4, 19), (40, 3, 12, 2, 67)])
 def test_fused_gradients_match_xla_backend(in_dim, out, T, D, batch):
-    """The custom VJP (dx and dW kernels) against autodiff of the XLA
+    """The custom VJP (dW kernel, plain-jnp dx) against autodiff of the XLA
     layer, through the coefficient fold."""
     rng = np.random.default_rng(batch)
     lp = random_layer(rng, in_dim, out, T, D)
-    x = jnp.asarray(rng.uniform(-1.5, 1.5, (batch, in_dim)))
-    y = jnp.asarray(rng.normal(0, 1, (batch, T)))
+    x = _uniform(rng, -1.5, 1.5, (batch, in_dim))
+    y = jnp.asarray(rng.normal(0, 1, (batch, T)), jnp.float32)
     degs = lp["degrees"]
 
     def loss(tp, x, backend):
@@ -91,7 +93,7 @@ def test_fused_multi_layer_and_jit():
     rng = np.random.default_rng(2)
     D = 3
     params = [random_layer(rng, 6, 4, 5, D), random_layer(rng, 5, 3, 2, D)]
-    x = jnp.asarray(rng.uniform(-1, 1, (16, 6)))
+    x = _uniform(rng, -1, 1, (16, 6))
     want = np.asarray(kan_apply(params, x, D))
     got = np.asarray(
         jax.jit(lambda p, x: kan_apply(p, x, D, backend="fused"))(params, x)
@@ -103,15 +105,28 @@ def test_fused_multi_layer_and_jit():
 def test_fused_rejects_compute_dtypes(cd):
     rng = np.random.default_rng(4)
     lp = random_layer(rng, 4, 2, 2, 2)
-    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
+    x = _uniform(rng, -1, 1, (8, 4))
     with pytest.raises(ValueError, match="f32 only"):
         kan_layer_apply(lp, x, 2, cd, backend="fused")
+
+
+@pytest.mark.parametrize("x_f64,w_f64", [(True, True), (True, False), (False, True)])
+def test_fused_rejects_f64_layers(x_f64, w_f64):
+    """The kernel computes in f32: an explicit backend='fused' on an f64
+    layer raises instead of silently rounding it to f32 (x64 is on)."""
+    rng = np.random.default_rng(4)
+    lp = random_layer(rng, 4, 2, 2, 2, dtype=np.float64 if w_f64 else np.float32)
+    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)), jnp.float64 if x_f64 else jnp.float32)
+    with pytest.raises(ValueError, match="f32 only"):
+        kan_layer_apply(lp, x, 2, backend="fused")
+    # 'auto' keeps such a layer on XLA, in f64
+    assert kan_layer_apply(lp, x, 2).dtype == jnp.float64
 
 
 def test_fused_rejects_precision_without_a_kernel_mode():
     rng = np.random.default_rng(4)
     lp = random_layer(rng, 4, 2, 2, 2)
-    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
+    x = _uniform(rng, -1, 1, (8, 4))
     with pytest.raises(ValueError, match="no mode"):
         kan_layer_apply(lp, x, 2, backend="fused", matmul_precision="highest")
 
@@ -146,41 +161,33 @@ def test_fused_unknown_precision_raises():
         kan_layer_fused(x, w, 2, "highest", interpret=True)
 
 
-def test_fused_raw_chebyshev_mode_matches_qkan_layer():
-    """apply_tanh=False runs the recurrence on raw x: forward AND both
-    cotangents must match qkan_layer_forward_batched (the QKANLayer
-    semantics, tanh upstream) under the degree-major weight fold."""
-    from qkan_implementation.ops.qkan_layer import (
-        qkan_layer_forward_batched,
-        qkan_weight_tensor,
-    )
-
+@pytest.mark.parametrize("mode", ["default", "bf16x3"])
+def test_fused_gradients_match_reference_per_mode(mode):
+    """Both cotangents of the raw op in each kernel mode against the f64
+    NumPy derivatives: dW = T(t)^T g and dx = (1 - t^2) sum_d T'_d(t) *
+    (g @ W_d^T), with T'_d = d U_{d-1}."""
     rng = np.random.default_rng(7)
-    N, K, D = 16, 8, 7
-    x = jnp.asarray(rng.uniform(-1, 1, (37, N)), dtype=jnp.float32)
-    w = jnp.asarray(rng.uniform(-1, 1, (D + 1, N * K)), dtype=jnp.float32)
-
-    def ref(x, w):
-        return qkan_layer_forward_batched(x, w, N, K)
-
-    def fused(x, w):
-        M = qkan_weight_tensor(w, N, K)
-        w2 = M.transpose(2, 1, 0).reshape(-1, K)
-        return kan_layer_fused(x, w2, D + 1, apply_tanh=False, interpret=True)
-
-    np.testing.assert_allclose(
-        np.asarray(fused(x, w)), np.asarray(ref(x, w)), rtol=1e-5, atol=1e-5
+    B, n, T, dp1 = 70, 40, 12, 6
+    x = _uniform(rng, -2, 2, (B, n))
+    w = jnp.asarray(rng.normal(0, 0.3, (dp1 * n, T)), jnp.float32)
+    g = jnp.asarray(rng.normal(size=(B, T)), jnp.float32)
+    dx, dw = jax.grad(
+        lambda x, w: jnp.sum(kan_layer_fused(x, w, dp1, mode, interpret=True) * g),
+        argnums=(0, 1),
+    )(x, w)
+    t = np.tanh(np.asarray(x, np.float64))
+    ts, us = [np.ones_like(t), t], [np.ones_like(t), 2 * t]
+    for _ in range(2, dp1):
+        ts.append(2 * t * ts[-1] - ts[-2])
+        us.append(2 * t * us[-1] - us[-2])
+    g64 = np.asarray(g, np.float64)
+    w3 = np.asarray(w, np.float64).reshape(dp1, n, T)
+    dw_want = np.concatenate(ts, axis=1).T @ g64
+    dx_want = (1 - t * t) * sum(
+        d * us[d - 1] * (g64 @ w3[d].T) for d in range(1, dp1)
     )
-
-    def loss(fn):
-        def f(x, w):
-            return jnp.sum(jnp.sin(fn(x, w)))
-        return jax.grad(f, argnums=(0, 1))
-
-    dx_r, dw_r = loss(ref)(x, w)
-    dx_f, dw_f = loss(fused)(x, w)
-    np.testing.assert_allclose(np.asarray(dx_f), np.asarray(dx_r), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(dw_f), np.asarray(dw_r), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(dw), dw_want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(dx), dx_want, rtol=1e-4, atol=1e-4)
 
 
 def test_pad_weights_layout():
@@ -216,26 +223,32 @@ def test_backward_returns_input_dtypes():
 
 def test_choose_backend_is_xla_off_the_gpu():
     assert jax.default_backend() == "cpu"
-    assert choose_layer_backend(4704, None, None) == "xla"
+    assert choose_layer_backend(4704, None, None, jnp.float32) == "xla"
+
+
+F32, F64 = jnp.float32, jnp.float64
 
 
 @pytest.mark.parametrize(
-    "fan_in,compute_dtype,precision,want",
+    "fan_in,compute_dtype,precision,dtype,want",
     [
-        (4704, None, None, "fused"),  # flagship layer 0, training (TF32)
-        (4704, None, "BF16_BF16_F32_X3", "fused"),  # layer 0, serving
-        (512, None, None, "fused"),  # the wide-layer threshold
-        (511, None, None, "xla"),  # narrow: XLA's matmul is as fast
-        (60, None, None, "xla"),  # flagship hidden layers
-        (4704, None, "highest", "xla"),  # no full-f32 kernel mode
-        (4704, None, "high", "xla"),
-        (4704, jnp.bfloat16, None, "xla"),  # bf16io recipe
-        (4704, "int8x2", None, "xla"),
+        (4704, None, None, F32, "fused"),  # flagship layer 0, training (TF32)
+        (4704, None, "BF16_BF16_F32_X3", F32, "fused"),  # layer 0, serving
+        (512, None, None, F32, "fused"),  # the wide-layer threshold
+        (511, None, None, F32, "xla"),  # narrow: XLA's matmul is as fast
+        (60, None, None, F32, "xla"),  # flagship hidden layers
+        (4704, None, "highest", F32, "xla"),  # no full-f32 kernel mode
+        (4704, None, "high", F32, "xla"),
+        (4704, jnp.bfloat16, None, F32, "xla"),  # bf16io recipe
+        (4704, "int8x2", None, F32, "xla"),
+        (4704, None, None, F64, "xla"),  # f64 layer: the kernel is f32
+        (4704, None, "default", F64, "xla"),
     ],
 )
-def test_choose_backend_on_gpu(monkeypatch, fan_in, compute_dtype, precision, want):
+def test_choose_backend_on_gpu(monkeypatch, fan_in, compute_dtype, precision,
+                               dtype, want):
     monkeypatch.setattr(fk.jax, "default_backend", lambda: "gpu")
-    assert choose_layer_backend(fan_in, compute_dtype, precision) == want
+    assert choose_layer_backend(fan_in, compute_dtype, precision, dtype) == want
 
 
 @pytest.mark.parametrize(
@@ -253,11 +266,11 @@ def test_auto_backend_reads_the_ambient_precision(monkeypatch):
     seen = []
     monkeypatch.setattr(
         fk, "choose_layer_backend",
-        lambda fan_in, cd, prec: seen.append(prec) or "xla",
+        lambda fan_in, cd, prec, dtype: seen.append(prec) or "xla",
     )
     rng = np.random.default_rng(11)
     lp = random_layer(rng, 4, 2, 2, 2)
-    x = jnp.asarray(rng.uniform(-1, 1, (8, 4)))
+    x = _uniform(rng, -1, 1, (8, 4))
     with jax.default_matmul_precision("highest"):
         kan_layer_apply(lp, x, 2, matmul_precision=None)
     kan_layer_apply(lp, x, 2, matmul_precision=None)
